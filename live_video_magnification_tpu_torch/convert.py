@@ -1,0 +1,93 @@
+"""Carried state and dynamic parameters between the JAX package and the port.
+
+The system has no weights: what must cross from a JAX run to a port run is the
+carried temporal state. Both packages lay it out as the same nested
+NamedTuples, so a state is a flat list of leaves in ``jax.tree.flatten`` order:
+``count``, then per level ``old`` (lowpass, cos, sin), per active level ``acc``
+(cos, sin), ``lo`` (reg0.cos, reg0.sin, reg1.cos, reg1.sin) and ``hi`` (the
+same). Checkpoints (``export/batch.py``) use the same order.
+
+This module imports no JAX: callers hand over numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, List, Sequence
+
+import numpy as np
+import torch
+
+from live_video_magnification_tpu_torch.device import resolve_device
+from live_video_magnification_tpu_torch.models.riesz import RieszDynParams, init_state
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """Leaves of nested tuples / NamedTuples, depth first, in field order."""
+    if isinstance(tree, tuple):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
+    """A tree shaped as ``like`` holding ``leaves`` in tree_leaves order."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, tuple):
+            children = [build(c) for c in node]
+            return type(node)(*children) if hasattr(node, "_fields") else tuple(children)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def state_to_numpy(state: Any) -> List[np.ndarray]:
+    """The state's leaves as host numpy arrays (count as an int32 scalar)."""
+    return [
+        leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
+        else np.asarray(leaf, np.int32)
+        for leaf in tree_leaves(state)
+    ]
+
+
+def state_from_numpy(like: Any, leaves: Sequence[np.ndarray], device) -> Any:
+    """Leaves from ``state_to_numpy`` (or a JAX run) in the layout of ``like``.
+    An int leaf of ``like`` (the frame count) stays a host int."""
+    ref = tree_leaves(like)
+    if len(ref) != len(leaves):
+        raise ValueError(f"expected {len(ref)} state leaves, got {len(leaves)}")
+    out = []
+    for r, leaf in zip(ref, leaves):
+        a = np.asarray(leaf)
+        if isinstance(r, torch.Tensor):
+            if tuple(a.shape) != tuple(r.shape):
+                raise ValueError(f"state leaf shape {a.shape} != expected {tuple(r.shape)}")
+            out.append(torch.tensor(a, dtype=r.dtype, device=device))
+        else:
+            out.append(int(a))
+    return tree_unflatten(like, out)
+
+
+def riesz_state_from_jax(leaves: Sequence[np.ndarray], device=None):
+    """The port's RieszState from the JAX RieszState's leaves (numpy, in
+    ``jax.tree.flatten`` order), on ``device`` (CUDA by default)."""
+    n = len(leaves)
+    if (n + 9) % 13:
+        raise ValueError(f"{n} leaves is not a RieszState (13*levels - 9 leaves)")
+    levels = (n + 9) // 13
+    h, w = np.shape(leaves[1])
+    dev = resolve_device(device)
+    return state_from_numpy(init_state(h, w, levels, device="cpu"), leaves, dev)
+
+
+def riesz_dyn_from_jax(dyn: Any) -> RieszDynParams:
+    """The port's RieszDynParams from a JAX RieszDynParams (or any 8-tuple of
+    array-likes in its field order)."""
+    f = lambda v: float(np.asarray(v, np.float32))
+    c3 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32).reshape(3))
+    amp, thr, b_lo, a_lo, b_hi, a_hi, reset, force = dyn
+    return RieszDynParams(f(amp), f(thr), c3(b_lo), c3(a_lo), c3(b_hi), c3(a_hi),
+                          bool(np.asarray(reset)), bool(np.asarray(force)))

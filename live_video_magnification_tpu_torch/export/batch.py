@@ -1,0 +1,114 @@
+"""Clip processing with carried state and checkpoint/resume.
+
+The counterpart of the reference package's ``export/batch.py``: frames go
+through the same chain step as live use, in chunks, with the temporal state
+carried across chunks. The state plus the frame cursor is saved to ``.npz``
+with the reference's leaf order and format version, so a long export can
+resume. Only the sequential form is ported; ``time_parallel=True`` raises.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from live_video_magnification_tpu_torch.convert import state_from_numpy, state_to_numpy
+from live_video_magnification_tpu_torch.models.chain import MagnificationChain, _build_step
+from live_video_magnification_tpu_torch.models.params import ProcessorConfig
+
+# Carried-state format, as the reference package's: v2 is the 10-plane
+# RieszState with the shared phase accumulator.
+STATE_FORMAT_VERSION = 2
+
+
+class ClipProcessor:
+    """Processor for [T, C, H, W] u8 chunks with carried state, one frame
+    after another. ``device`` defaults to CUDA and raises without a card;
+    pass ``device="cpu"`` for the CPU."""
+
+    def __init__(self, cfg: ProcessorConfig, h: int, w: int, channels: int,
+                 time_parallel: bool = False, device=None):
+        if time_parallel:
+            raise NotImplementedError(
+                "the time-parallel clip path is not ported yet: ROADMAP.md queue 1, "
+                "'Time-parallel forms'")
+        chain = MagnificationChain(device=device)
+        self.cfg = cfg
+        self.device = chain.device
+        self.key = chain.static_key(cfg, h, w, channels)
+        self._step = _build_step(self.key, self.device)
+        self._dyn = chain._dyn_params(cfg, self.key)
+        self.state = self._step.init_state()
+        self.cursor = 0
+
+    def process_chunk(self, frames_u8) -> Tuple[np.ndarray, np.ndarray]:
+        """frames_u8: [T, C, H, W] u8 (numpy or a tensor on any device).
+        Returns (processed, original) numpy stacks."""
+        frames = torch.as_tensor(frames_u8).to(self.device)
+        processed, original = [], []
+        for frame in frames:
+            self.state, out, orig = self._step.raw_fn(self.state, frame, self._dyn)
+            processed.append(out)
+            original.append(orig)
+        self.cursor += frames.shape[0]
+        return torch.stack(processed).cpu().numpy(), torch.stack(original).cpu().numpy()
+
+    # -- checkpoint / resume ---------------------------------------------------------------------
+
+    def _config_digest(self) -> str:
+        key_repr = repr(self.key) + repr(self.cfg)
+        return hashlib.sha256(key_repr.encode()).hexdigest()[:16]
+
+    def save_checkpoint(self, path: str) -> None:
+        arrays = {f"leaf_{i}": a for i, a in enumerate(state_to_numpy(self.state))}
+        meta = json.dumps({"cursor": self.cursor, "digest": self._config_digest(),
+                           "version": STATE_FORMAT_VERSION})
+        np.savez(path, __meta__=np.frombuffer(meta.encode(), dtype=np.uint8), **arrays)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restores state; returns the frame cursor to resume from."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+            meta = json.loads(bytes(data["__meta__"]).decode())
+            # version before digest: a layout change also changes the digest,
+            # and "different configuration" would mislead
+            found = meta.get("version", 1)
+            if found != STATE_FORMAT_VERSION:
+                raise ValueError(
+                    f"incompatible checkpoint state-format version (checkpoint "
+                    f"v{found}, this build writes v{STATE_FORMAT_VERSION}): the "
+                    "carried-state layout changed; re-export from the start")
+            if meta["digest"] != self._config_digest():
+                raise ValueError("checkpoint was written for a different configuration")
+            n = len(data.files) - 1
+            leaves = [data[f"leaf_{i}"] for i in range(n)]
+        self.state = state_from_numpy(self.state, leaves, self.device)
+        self.cursor = int(meta["cursor"])
+        return self.cursor
+
+
+def export_frames(
+    frames_u8_tchw: np.ndarray,
+    cfg: ProcessorConfig,
+    chunk_size: int = 32,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    device=None,
+) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """Yield (processed, original) chunks for a [T, C, H, W] u8 clip."""
+    t, c, h, w = frames_u8_tchw.shape
+    proc = ClipProcessor(cfg, h, w, c, device=device)
+    start = 0
+    if checkpoint_path and os.path.exists(checkpoint_path + ".npz"):
+        start = proc.load_checkpoint(checkpoint_path)
+    done = start
+    for i in range(start, t, chunk_size):
+        chunk = frames_u8_tchw[i : i + chunk_size]
+        yield proc.process_chunk(chunk)
+        done += chunk.shape[0]
+        if checkpoint_path and checkpoint_every and (done % checkpoint_every) < chunk_size:
+            proc.save_checkpoint(checkpoint_path)

@@ -1,0 +1,160 @@
+"""Phase (Riesz) magnification: Riesz pyramid + Butterworth phase bandpass.
+
+The counterpart of the reference package's ``models/riesz.py``
+(MagnifyCore.hpp:209-279):
+
+  u8 -> f32/255 -> BGR->Lab, take L -> Riesz pyramid -> quaternionic phase
+  difference against the prior frame's pyramid -> per-level lo/hi Butterworth
+  DF-II on the accumulated phase -> amplitude-normalized phase change -> phase
+  rotation of the band (truncated at the threshold) -> collapse -> merge L
+  back into Lab -> BGR u8.
+
+State is a NamedTuple of tensors laid out as the reference's, so checkpoints
+and ``convert.py`` map leaf for leaf. ``count`` is a host int: the first-frame
+test then costs no device-to-host sync. The per-frame flags are host bools,
+so rebuilding the prior pyramid and zeroing the filters select tensors instead
+of masking them. ``step`` is functional: it returns a new state and leaves the
+given one untouched.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Tuple
+
+import torch
+
+from live_video_magnification_tpu_torch.device import resolve_device
+from live_video_magnification_tpu_torch.ops.color import (
+    bgr_to_lab,
+    lab_to_bgr,
+    to_u8,
+    u8_to_unit_f32,
+)
+from live_video_magnification_tpu_torch.ops.riesz import (
+    RieszLevel,
+    amplify_level,
+    build_riesz_pyramid,
+    collapse_riesz_pyramid,
+    normalize_phase,
+    phase_difference_and_amplitude,
+    riesz_level_sizes,
+)
+from live_video_magnification_tpu_torch.ops.temporal import CompExp, riesz_df2_step
+
+Coeffs = Tuple[float, float, float]
+
+
+class RieszDynParams(NamedTuple):
+    """Per-frame parameters, host values already rounded to f32."""
+
+    amplification: float
+    threshold: float     # co_wavelength * pi / 100 (MagnifyCore.hpp:214,269)
+    b_lo: Coeffs         # low-cutoff Butterworth numerator
+    a_lo: Coeffs         # denominator (a[0] == 1)
+    b_hi: Coeffs
+    a_hi: Coeffs
+    reset_filters: bool  # a cutoff changed this frame
+    force_init: bool     # degenerate coefficients -> re-init + passthrough
+
+
+class RegPair(NamedTuple):
+    """DF-II register pair of one Butterworth filter (TemporalFilter.cpp:340-351)."""
+
+    reg0: CompExp
+    reg1: CompExp
+
+
+class RieszState(NamedTuple):
+    """Ten state planes per active level: the lo and hi filters accumulate the
+    same phase difference and are reset together, so ``acc`` carries their
+    shared accumulator once."""
+
+    count: int
+    old: Tuple[RieszLevel, ...]    # prior pyramid, all `levels` levels
+    acc: Tuple[CompExp, ...]       # shared accumulated phase, per active level
+    lo: Tuple[RegPair, ...]        # per active level (levels-1 entries)
+    hi: Tuple[RegPair, ...]
+
+
+def _zeros_like_pair(c: CompExp) -> CompExp:
+    return CompExp(torch.zeros_like(c.cos), torch.zeros_like(c.sin))
+
+
+def init_state(h: int, w: int, levels: int, device=None) -> RieszState:
+    """Zero state for (h, w) frames. ``device`` defaults to CUDA and raises
+    without a card; pass ``device="cpu"`` for the CPU."""
+    dev = resolve_device(device)
+    sizes = riesz_level_sizes(h, w, levels)
+    z = lambda lh, lw: torch.zeros((lh, lw), dtype=torch.float32, device=dev)
+    old = tuple(RieszLevel(z(lh, lw), CompExp(z(lh, lw), z(lh, lw))) for lh, lw in sizes)
+    active = sizes[: levels - 1]
+    acc = tuple(CompExp(z(lh, lw), z(lh, lw)) for lh, lw in active)
+    regs = lambda: tuple(
+        RegPair(CompExp(z(lh, lw), z(lh, lw)), CompExp(z(lh, lw), z(lh, lw)))
+        for lh, lw in active
+    )
+    return RieszState(0, old, acc, regs(), regs())
+
+
+def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
+         levels: int) -> Tuple[RieszState, torch.Tensor]:
+    """One frame: [3, H, W] uint8 BGR in, (new state, [3, H, W] uint8) out."""
+    lab = bgr_to_lab(u8_to_unit_f32(frame_u8))
+    cur = build_riesz_pyramid(lab[0], levels)
+
+    first = state.count == 0
+    rebuild_old = first or dyn.reset_filters or dyn.force_init
+    old = tuple(cur) if rebuild_old else state.old
+
+    new_acc: List[CompExp] = []
+    new_lo: List[RegPair] = []
+    new_hi: List[RegPair] = []
+    lowpasses: List[torch.Tensor] = []
+    for lvl in range(levels - 1):
+        acc, lo, hi = state.acc[lvl], state.lo[lvl], state.hi[lvl]
+        if rebuild_old:  # the filters restart from zero with the prior pyramid
+            acc = _zeros_like_pair(acc)
+            lo = RegPair(_zeros_like_pair(lo.reg0), _zeros_like_pair(lo.reg1))
+            hi = RegPair(_zeros_like_pair(hi.reg0), _zeros_like_pair(hi.reg1))
+        pr = phase_difference_and_amplitude(cur[lvl], old[lvl])
+        lo_res, phase, lo_r0, lo_r1 = riesz_df2_step(
+            acc, lo.reg0, lo.reg1, pr.phase_diff, dyn.b_lo, dyn.a_lo)
+        hi_res, _, hi_r0, hi_r1 = riesz_df2_step(
+            acc, hi.reg0, hi.reg1, pr.phase_diff, dyn.b_hi, dyn.a_hi)
+        new_acc.append(phase)
+        new_lo.append(RegPair(lo_r0, lo_r1))
+        new_hi.append(RegPair(hi_r0, hi_r1))
+        normalized = normalize_phase(hi_res, lo_res, pr.amplitude, pr.amplitude_blurred)
+        lowpasses.append(amplify_level(cur[lvl], normalized, dyn.amplification,
+                                       dyn.threshold))
+    lowpasses.append(cur[levels - 1].lowpass)  # untouched residual octave
+
+    magnified = collapse_riesz_pyramid(lowpasses)
+    merged = torch.stack([magnified, lab[1], lab[2]])
+    out_u8 = to_u8(lab_to_bgr(merged), 255.0, 1.0 / 255.0)
+
+    # The first frame and degenerate-coefficient frames emit the raw input
+    # unchanged (MagnifyCore.hpp:226-239).
+    if first or dyn.force_init:
+        out_u8 = frame_u8.clone()
+
+    # "*st.old = *st.cur": the prior pyramid becomes this frame's.
+    new_state = RieszState(state.count + 1, tuple(cur), tuple(new_acc),
+                           tuple(new_lo), tuple(new_hi))
+    return new_state, out_u8
+
+
+def process_clip(frames_u8: torch.Tensor, dyn: RieszDynParams, *, levels: int,
+                 state: Optional[RieszState] = None, device=None
+                 ) -> Tuple[RieszState, torch.Tensor]:
+    """[T, 3, H, W] uint8 through ``step`` in order; returns (state, outs).
+    Without ``state`` it starts from zero on ``device`` (CUDA by default)."""
+    t, _, h, w = frames_u8.shape
+    if state is None:
+        state = init_state(h, w, levels, device=device)
+    frames_u8 = frames_u8.to(state.old[0].lowpass.device)
+    outs = []
+    for i in range(t):
+        state, out = step(state, frames_u8[i], dyn, levels=levels)
+        outs.append(out)
+    return state, torch.stack(outs)
