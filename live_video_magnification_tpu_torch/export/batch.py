@@ -24,6 +24,7 @@ from live_video_magnification_tpu_torch.models.params import ProcessorConfig
 # Carried-state format, as the reference package's: v2 is the 10-plane
 # RieszState with the shared phase accumulator.
 STATE_FORMAT_VERSION = 2
+_TAIL_FIELDS = ("phase_fused", "tail")
 
 
 class ClipProcessor:
@@ -61,8 +62,15 @@ class ClipProcessor:
     # -- checkpoint / resume ---------------------------------------------------------------------
 
     def _config_digest(self) -> str:
-        key_repr = repr(self.key) + repr(self.cfg)
-        return hashlib.sha256(key_repr.encode()).hexdigest()[:16]
+        """A digest of the static key and the config. The tail fields enter
+        it only where they differ from their defaults, so a checkpoint
+        written before the key had them (same state layout) still loads."""
+        key, defaults = self.key, type(self.key)._field_defaults
+        shown = [f for f in key._fields
+                 if f not in _TAIL_FIELDS or getattr(key, f) != defaults[f]]
+        key_repr = (f"{type(key).__name__}("
+                    + ", ".join(f"{f}={getattr(key, f)!r}" for f in shown) + ")")
+        return hashlib.sha256((key_repr + repr(self.cfg)).encode()).hexdigest()[:16]
 
     def save_checkpoint(self, path: str) -> None:
         arrays = {f"leaf_{i}": a for i, a in enumerate(state_to_numpy(self.state))}

@@ -19,6 +19,7 @@ LAPLACE and COLOR raise NotImplementedError until they are ported.
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -72,6 +73,11 @@ class _StaticKey(NamedTuple):
     grayscale: bool
     geometry: Tuple[int, int, int, int, int, int]
     framerate: float
+    # The per-level tail (LVMT_PHASE_FUSED, LVMT_TAIL), read from the
+    # environment once per frame into the key, so changing a flag builds a
+    # new step instead of reusing a stale one.
+    phase_fused: bool = False
+    tail: str = "jnp"
 
 
 class ChainStep(NamedTuple):
@@ -125,7 +131,8 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
             "color mode is not ported yet: ROADMAP.md queue 1, 'Motion and color modes'")
     if mode is MagnificationMode.PHASE and key.channels >= 3:
         def model_step(state, frame, dyn):
-            return riesz_mode.step(state, frame, dyn, levels=levels)
+            return riesz_mode.step(state, frame, dyn, levels=levels, tail=key.tail,
+                                   phase_fused=key.phase_fused)
 
         def init():
             return riesz_mode.init_state(oh, ow, levels, device=device)
@@ -225,6 +232,8 @@ class MagnificationChain:
         return _StaticKey(
             mode, levels, mag_channels, channels, h, w, bool(cfg.grayscale), geometry,
             float(cfg.magnification.framerate),
+            os.environ.get("LVMT_PHASE_FUSED", "0") == "1",
+            riesz_mode.resolve_tail(os.environ.get("LVMT_TAIL", "jnp")),
         )
 
     def process(self, frame_u8_hwc, cfg: ProcessorConfig):

@@ -30,9 +30,11 @@ from live_video_magnification_tpu_torch.ops.color import (
     to_u8,
     u8_to_unit_f32,
 )
+from live_video_magnification_tpu_torch.ops.hopper import tail as kernel_tails
 from live_video_magnification_tpu_torch.ops.riesz import (
     RieszLevel,
     amplify_level,
+    amplitude_blur,
     build_riesz_pyramid,
     collapse_riesz_pyramid,
     normalize_phase,
@@ -42,6 +44,9 @@ from live_video_magnification_tpu_torch.ops.riesz import (
 from live_video_magnification_tpu_torch.ops.temporal import CompExp, riesz_df2_step
 
 Coeffs = Tuple[float, float, float]
+
+# The per-level tails, named as the reference package's LVMT_TAIL values.
+TAILS = ("jnp", "pallas", "mxu", "level")
 
 
 class RieszDynParams(NamedTuple):
@@ -96,27 +101,104 @@ def init_state(h: int, w: int, levels: int, device=None) -> RieszState:
     return RieszState(0, old, acc, regs(), regs())
 
 
+def resolve_tail(tail: str) -> str:
+    """``tail`` if it names one of TAILS; raises otherwise."""
+    if tail not in TAILS:
+        raise ValueError(f"unknown tail {tail!r}: expected one of {', '.join(TAILS)}")
+    return tail
+
+
+def _unflat(regs) -> RegPair:
+    """(r0_c, r0_s, r1_c, r1_s) as a RegPair."""
+    return RegPair(CompExp(regs[0], regs[1]), CompExp(regs[2], regs[3]))
+
+
+def _flat(rp: RegPair) -> Tuple[torch.Tensor, ...]:
+    return (rp.reg0.cos, rp.reg0.sin, rp.reg1.cos, rp.reg1.sin)
+
+
 def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
-         levels: int) -> Tuple[RieszState, torch.Tensor]:
-    """One frame: [3, H, W] uint8 BGR in, (new state, [3, H, W] uint8) out."""
+         levels: int, tail: str = "jnp", phase_fused: bool = False
+         ) -> Tuple[RieszState, torch.Tensor]:
+    """One frame: [3, H, W] uint8 BGR in, (new state, [3, H, W] uint8) out.
+
+    ``tail`` and ``phase_fused`` select the per-level tail as the reference
+    package's LVMT_TAIL and LVMT_PHASE_FUSED do; the caller resolves them
+    (the chain reads the environment once, into its static key). On every
+    active level whose sides are both at least ``ops/hopper/tail.py::MIN_SIDE``
+    (16), in the reference's order of precedence:
+
+      1. phase_fused: K8 (riesz_phase_df2_fused), then K7 preweighted
+         (riesz_amplify_fused) if tail == "pallas", else the plain blurs and
+         amplify_level;
+      2. tail == "level": K9 (riesz_level_mxu), the whole tail in one kernel;
+      3. tail == "mxu": the plain front and DF-II, then K6 (riesz_amplify_mxu);
+      4. tail == "pallas": the plain front and DF-II, then K7;
+      5. tail == "jnp": the plain tail throughout.
+
+    Smaller levels take the plain tail. On a CPU tensor every kernel entry
+    point runs its plain version."""
+    resolve_tail(tail)
     lab = bgr_to_lab(u8_to_unit_f32(frame_u8))
     cur = build_riesz_pyramid(lab[0], levels)
 
     first = state.count == 0
     rebuild_old = first or dyn.reset_filters or dyn.force_init
     old = tuple(cur) if rebuild_old else state.old
+    coeffs = (dyn.b_lo, dyn.a_lo, dyn.b_hi, dyn.a_hi)
 
     new_acc: List[CompExp] = []
     new_lo: List[RegPair] = []
     new_hi: List[RegPair] = []
     lowpasses: List[torch.Tensor] = []
     for lvl in range(levels - 1):
+        c = cur[lvl]
+        kernel_tail = min(c.lowpass.shape) >= kernel_tails.MIN_SIDE
         acc, lo, hi = state.acc[lvl], state.lo[lvl], state.hi[lvl]
+        if kernel_tail and (phase_fused or tail == "level"):
+            # the kernels take the raw prior pyramid and state and apply the
+            # rebuild selection themselves
+            raw = (c.lowpass, c.riesz.cos, c.riesz.sin, state.old[lvl].lowpass,
+                   state.old[lvl].riesz.cos, state.old[lvl].riesz.sin)
+            if phase_fused:
+                # the kernel's per-filter 6-plane layout; the shared acc is
+                # fed to both filters, which accumulate it identically
+                amplitude, wc, ws, lo6, hi6 = kernel_tails.riesz_phase_df2_fused(
+                    *raw, (*acc, *_flat(lo)), (*acc, *_flat(hi)), *coeffs, rebuild_old)
+                new_acc.append(CompExp(lo6[0], lo6[1]))
+                new_lo.append(_unflat(lo6[2:]))
+                new_hi.append(_unflat(hi6[2:]))
+                if tail == "pallas":
+                    lowpasses.append(kernel_tails.riesz_amplify_fused(
+                        amplitude, wc, ws, c.lowpass, c.riesz.cos, c.riesz.sin,
+                        dyn.amplification, dyn.threshold, preweighted=True))
+                else:  # wc/ws carry the amplitude weight already
+                    ab = amplitude_blur(amplitude)
+                    normalized = CompExp(amplitude_blur(wc) / ab, amplitude_blur(ws) / ab)
+                    lowpasses.append(amplify_level(c, normalized, dyn.amplification,
+                                                   dyn.threshold))
+            else:
+                out, acc2, lo2, hi2 = kernel_tails.riesz_level_mxu(
+                    *raw, acc, _flat(lo), _flat(hi), *coeffs, rebuild_old,
+                    dyn.amplification, dyn.threshold)
+                new_acc.append(CompExp(*acc2))
+                new_lo.append(_unflat(lo2))
+                new_hi.append(_unflat(hi2))
+                lowpasses.append(out)
+            continue
+
         if rebuild_old:  # the filters restart from zero with the prior pyramid
             acc = _zeros_like_pair(acc)
             lo = RegPair(_zeros_like_pair(lo.reg0), _zeros_like_pair(lo.reg1))
             hi = RegPair(_zeros_like_pair(hi.reg0), _zeros_like_pair(hi.reg1))
-        pr = phase_difference_and_amplitude(cur[lvl], old[lvl])
+        amplify_kernel = None
+        if kernel_tail and tail == "mxu":
+            amplify_kernel = kernel_tails.riesz_amplify_mxu
+        elif kernel_tail and tail == "pallas":
+            amplify_kernel = kernel_tails.riesz_amplify_fused
+        pr = phase_difference_and_amplitude(c, old[lvl],
+                                            compute_blur=amplify_kernel is None)
+        # both filters read the same shared accumulator
         lo_res, phase, lo_r0, lo_r1 = riesz_df2_step(
             acc, lo.reg0, lo.reg1, pr.phase_diff, dyn.b_lo, dyn.a_lo)
         hi_res, _, hi_r0, hi_r1 = riesz_df2_step(
@@ -124,9 +206,14 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
         new_acc.append(phase)
         new_lo.append(RegPair(lo_r0, lo_r1))
         new_hi.append(RegPair(hi_r0, hi_r1))
+        if amplify_kernel is not None:
+            change = hi_res - lo_res
+            lowpasses.append(amplify_kernel(
+                pr.amplitude, change.cos, change.sin, c.lowpass, c.riesz.cos,
+                c.riesz.sin, dyn.amplification, dyn.threshold))
+            continue
         normalized = normalize_phase(hi_res, lo_res, pr.amplitude, pr.amplitude_blurred)
-        lowpasses.append(amplify_level(cur[lvl], normalized, dyn.amplification,
-                                       dyn.threshold))
+        lowpasses.append(amplify_level(c, normalized, dyn.amplification, dyn.threshold))
     lowpasses.append(cur[levels - 1].lowpass)  # untouched residual octave
 
     magnified = collapse_riesz_pyramid(lowpasses)

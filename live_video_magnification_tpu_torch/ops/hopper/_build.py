@@ -17,10 +17,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES: Dict[str, str] = {"stencils": "stencils.cu"}
+SOURCES: Dict[str, str] = {"stencils": "stencils.cu", "tail": "tail.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -82,3 +84,14 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, Path]:
 def load_library(name: str) -> ctypes.CDLL:
     """The built library ``name``, compiled first if needed (once per process)."""
     return ctypes.CDLL(str(build([name])[name]))
+
+
+def launch(fn: Callable[..., int], what: str, device: torch.device, *args) -> None:
+    """Call the C launcher ``fn(*args, stream)`` on ``device``'s current
+    stream; raise if it returns a CUDA error (a refused launch never runs,
+    and no later synchronize reports it)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA kernel launch failed with cudaError {err}")

@@ -39,6 +39,7 @@ from live_video_magnification_tpu_torch.ops.conv import (
     correlate_cols,
     correlate_rows,
 )
+from live_video_magnification_tpu_torch.ops.hopper._build import launch, load_library
 from live_video_magnification_tpu_torch.ops.resize import resize_nearest_even_inject
 
 LAUNCHES = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0}
@@ -70,8 +71,6 @@ def lp9_inject_plain(small: torch.Tensor, k9, out_hw: Tuple[int, int]) -> torch.
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    from live_video_magnification_tpu_torch.ops.hopper._build import load_library
-
     lib = load_library("stencils")
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
@@ -111,11 +110,7 @@ def _taps(k, n: int) -> np.ndarray:
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(_lib(), "lvmt_" + name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed with cudaError {err}")
+    launch(getattr(_lib(), "lvmt_" + name), name, device, *args)
     LAUNCHES[name] += 1
 
 

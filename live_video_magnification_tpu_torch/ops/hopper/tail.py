@@ -1,0 +1,258 @@
+"""The per-level Riesz tail: CUDA kernels for Hopper and their plain PyTorch
+versions.
+
+Each public function keeps the name and the signature of the reference
+package's entry point (without ``interpret`` and the TPU geometry options)
+and takes [H, W] float32 contiguous tensors of one shape on one device. On a
+CUDA tensor it launches its kernel from ``csrc/tail.cu`` on the current
+stream (or raises); on a CPU tensor it runs the plain version beside it.
+There is no switch and no fallback.
+
+  * riesz_phase_df2_fused -> phase_df2_kernel, replaces
+    ops/pallas/riesz_phase_fused.py::riesz_phase_df2_fused (K8);
+  * riesz_amplify_fused -> amplify13_kernel, replaces
+    ops/pallas/riesz_amplify.py::riesz_amplify_fused (K7);
+  * riesz_amplify_mxu -> amplify13_kernel, replaces
+    ops/pallas/riesz_amplify_mxu.py::riesz_amplify_mxu (K6);
+  * riesz_level_mxu -> level_tail_kernel, replaces
+    ops/pallas/riesz_level_mxu.py::riesz_level_mxu (K9).
+
+The two amplify entry points compute one function and share one kernel.
+Their plain versions use the blurs and the rotation of ``ops/riesz.py``; the
+front of the phase (K8, K9) uses the reference kernels' polynomial arccos
+(``polynomial_arccos``), not torch.arccos, as the TPU kernels do. The design
+notes (tiles, halo, the exact operation order) are at the top of the CUDA
+source. All four bound by bytes at every level of a 4K frame.
+
+``MIN_SIDE`` is the step's size rule: a level whose sides are both at least
+16 runs its tail kernel; smaller levels take the plain tail, as the reference
+package does below its own gate. The functions themselves take any size.
+
+``LAUNCHES`` counts the kernel launches of each entry point; a run that
+resets it can show which kernels its main path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from live_video_magnification_tpu_torch.ops.hopper._build import launch, load_library
+from live_video_magnification_tpu_torch.ops.kernels import AMPLITUDE_BLUR_KERNEL_1D
+from live_video_magnification_tpu_torch.ops.riesz import (
+    RieszLevel,
+    amplify_level,
+    amplitude_blur,
+    phase_difference_and_amplitude,
+    polynomial_arccos,
+)
+from live_video_magnification_tpu_torch.ops.temporal import CompExp, riesz_df2_step
+
+LAUNCHES = {"riesz_phase_df2_fused": 0, "riesz_amplify_fused": 0,
+            "riesz_amplify_mxu": 0, "riesz_level_mxu": 0}
+
+MIN_SIDE = 16
+
+_TAPS13 = np.ascontiguousarray(np.asarray(AMPLITUDE_BLUR_KERNEL_1D, np.float32))
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def riesz_phase_df2_fused_plain(cur_lp, cur_r, cur_i, old_lp, old_r, old_i,
+                                lo_state: Sequence[torch.Tensor],
+                                hi_state: Sequence[torch.Tensor],
+                                b_lo, a_lo, b_hi, a_hi, rebuild: bool):
+    """Rebuild selection, phase front (polynomial arccos), lo and hi DF-II,
+    wc/ws = (hi - lo) * amplitude. Returns (amplitude, wc, ws, lo', hi'), each
+    filter state as 6 planes (phase_c, phase_s, r0_c, r0_s, r1_c, r1_s)."""
+    cur = RieszLevel(cur_lp, CompExp(cur_r, cur_i))
+    if rebuild:  # a selection, not a blend: inf state must not become NaN
+        old = cur
+        lo_state = hi_state = [torch.zeros_like(cur_lp)] * 6
+    else:
+        old = RieszLevel(old_lp, CompExp(old_r, old_i))
+    pr = phase_difference_and_amplitude(cur, old, compute_blur=False,
+                                        arccos=polynomial_arccos)
+
+    def filt(st, b, a):
+        res, phase, r0, r1 = riesz_df2_step(CompExp(st[0], st[1]), CompExp(st[2], st[3]),
+                                            CompExp(st[4], st[5]), pr.phase_diff, b, a)
+        return res, (phase.cos, phase.sin, r0.cos, r0.sin, r1.cos, r1.sin)
+
+    lo_res, lo2 = filt(lo_state, _c3(b_lo), _c3(a_lo))
+    hi_res, hi2 = filt(hi_state, _c3(b_hi), _c3(a_hi))
+    change = hi_res - lo_res
+    return (pr.amplitude, change.cos * pr.amplitude, change.sin * pr.amplitude, lo2, hi2)
+
+
+def riesz_amplify_plain(amplitude, change_c, change_s, lowpass, riesz_r, riesz_i,
+                        alpha, threshold, preweighted: bool = False) -> torch.Tensor:
+    """normalize_phase + amplify_level: n = g13(change * amplitude) / g13(amplitude)
+    (g13(change) / g13(amplitude) when ``preweighted``), then the rotation."""
+    wc, ws = ((change_c, change_s) if preweighted
+              else (change_c * amplitude, change_s * amplitude))
+    ab = amplitude_blur(amplitude)
+    normalized = CompExp(amplitude_blur(wc) / ab, amplitude_blur(ws) / ab)
+    return amplify_level(RieszLevel(lowpass, CompExp(riesz_r, riesz_i)), normalized,
+                         _f32(alpha), _f32(threshold))
+
+
+def riesz_level_mxu_plain(cur_lp, cur_r, cur_i, old_lp, old_r, old_i, acc,
+                          lo_regs, hi_regs, b_lo, a_lo, b_hi, a_hi, rebuild,
+                          alpha, threshold):
+    """The K8 plain version on the shared accumulator, then the preweighted
+    amplify plain version. Returns (amplified, acc', lo', hi')."""
+    amp, wc, ws, lo6, hi6 = riesz_phase_df2_fused_plain(
+        cur_lp, cur_r, cur_i, old_lp, old_r, old_i, (*acc, *lo_regs), (*acc, *hi_regs),
+        b_lo, a_lo, b_hi, a_hi, rebuild)
+    out = riesz_amplify_plain(amp, wc, ws, cur_lp, cur_r, cur_i, alpha, threshold,
+                              preweighted=True)
+    return out, tuple(lo6[:2]), tuple(lo6[2:]), tuple(hi6[2:])
+
+
+# ---------------------------------------------------------------- launching
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = load_library("tail")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    signatures = {
+        "lvmt_phase_df2": [p, ctypes.c_longlong, p, i, p],
+        "lvmt_amplify13": [p, i, i, f, f, i, p, p],
+        "lvmt_level_tail": [p, i, i, p, i, f, f, p, p],
+    }
+    for name, argtypes in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_planes(what: str, planes: Sequence[torch.Tensor]) -> torch.device:
+    """Every plane float32, [H, W], contiguous, of one shape on one device."""
+    first = planes[0]
+    for x in planes:
+        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
+            raise TypeError(f"{what}: expected float32 tensors, got "
+                            f"{getattr(x, 'dtype', type(x))}")
+        if x.ndim != 2:
+            raise ValueError(f"{what}: expected [H, W] planes, got shape {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: expected contiguous tensors")
+        if x.shape != first.shape:
+            raise ValueError(f"{what}: planes of shapes {tuple(first.shape)} and "
+                             f"{tuple(x.shape)}")
+        if x.device != first.device:
+            raise ValueError(f"{what}: planes on {first.device} and {x.device}")
+    if first.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {first.device}")
+    if first.numel() == 0:
+        raise ValueError(f"{what}: empty planes")
+    return first.device
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+def _c3(v) -> Tuple[float, float, float]:
+    """Three filter coefficients as host floats rounded to f32."""
+    c = np.asarray(v, dtype=np.float32).reshape(-1)
+    if c.size != 3:
+        raise ValueError(f"expected 3 filter coefficients, got {c.size}")
+    return tuple(float(x) for x in c)
+
+
+def _coeff_array(b_lo, a_lo, b_hi, a_hi) -> np.ndarray:
+    """b_lo[0..2], a_lo[1..2], b_hi[0..2], a_hi[1..2] as the kernels take them."""
+    return np.ascontiguousarray(np.asarray(
+        [*_c3(b_lo), *_c3(a_lo)[1:], *_c3(b_hi), *_c3(a_hi)[1:]], np.float32))
+
+
+def _pointers(tensors: Sequence[torch.Tensor]):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _launch(entry: str, symbol: str, device: torch.device, *args) -> None:
+    launch(getattr(_lib(), symbol), entry, device, *args)
+    LAUNCHES[entry] += 1
+
+
+def riesz_phase_df2_fused(cur_lp, cur_r, cur_i, old_lp, old_r, old_i,
+                          lo_state, hi_state, b_lo, a_lo, b_hi, a_hi, rebuild):
+    """Returns (amplitude, wc, ws, lo_state', hi_state') for one level; each
+    state is 6 planes (phase_c, phase_s, r0_c, r0_s, r1_c, r1_s). wc/ws are
+    (hi - lo) * amplitude, the inputs of the preweighted amplify."""
+    ins = (cur_lp, cur_r, cur_i, old_lp, old_r, old_i, *lo_state, *hi_state)
+    if len(ins) != 18:
+        raise ValueError("riesz_phase_df2_fused: each filter state is 6 planes")
+    dev = _check_planes("riesz_phase_df2_fused", ins)
+    rebuild = bool(rebuild)
+    if dev.type == "cpu":
+        return riesz_phase_df2_fused_plain(*ins[:6], ins[6:12], ins[12:], b_lo, a_lo,
+                                           b_hi, a_hi, rebuild)
+    outs = [torch.empty_like(cur_lp) for _ in range(15)]
+    coeff = _coeff_array(b_lo, a_lo, b_hi, a_hi)
+    _launch("riesz_phase_df2_fused", "lvmt_phase_df2", dev, _pointers([*ins, *outs]),
+            cur_lp.numel(), coeff.ctypes.data, int(rebuild))
+    return outs[0], outs[1], outs[2], tuple(outs[3:9]), tuple(outs[9:15])
+
+
+def _amplify(entry: str, amplitude, change_c, change_s, lowpass, riesz_r, riesz_i,
+             alpha, threshold, preweighted: bool) -> torch.Tensor:
+    ins = (amplitude, change_c, change_s, lowpass, riesz_r, riesz_i)
+    dev = _check_planes(entry, ins)
+    if dev.type == "cpu":
+        return riesz_amplify_plain(*ins, alpha, threshold, preweighted=preweighted)
+    out = torch.empty_like(lowpass)
+    h, w = lowpass.shape
+    _launch(entry, "lvmt_amplify13", dev, _pointers([*ins, out]), h, w,
+            _f32(alpha), _f32(threshold), int(bool(preweighted)),
+            _TAPS13.ctypes.data)
+    return out
+
+
+def riesz_amplify_fused(amplitude, change_c, change_s, lowpass, riesz_r, riesz_i,
+                        alpha, threshold, preweighted: bool = False) -> torch.Tensor:
+    """Normalize + amplify of one level: normalize_phase + amplify_level.
+    ``preweighted``: change_c/s already carry the amplitude factor (the
+    outputs wc/ws of riesz_phase_df2_fused)."""
+    return _amplify("riesz_amplify_fused", amplitude, change_c, change_s, lowpass,
+                    riesz_r, riesz_i, alpha, threshold, preweighted)
+
+
+def riesz_amplify_mxu(amplitude, change_c, change_s, lowpass, riesz_r, riesz_i,
+                      alpha, threshold, preweighted: bool = False) -> torch.Tensor:
+    """The same function as riesz_amplify_fused, the entry point of the
+    reference package's LVMT_TAIL=mxu tail. float32 inputs only."""
+    return _amplify("riesz_amplify_mxu", amplitude, change_c, change_s, lowpass,
+                    riesz_r, riesz_i, alpha, threshold, preweighted)
+
+
+def riesz_level_mxu(cur_lp, cur_r, cur_i, old_lp, old_r, old_i, acc, lo_regs, hi_regs,
+                    b_lo, a_lo, b_hi, a_hi, rebuild, alpha, threshold):
+    """The whole per-level tail: phase front, shared-accumulator DF-II,
+    normalize and amplify. acc is (acc_c, acc_s), lo_regs and hi_regs are
+    (r0_c, r0_s, r1_c, r1_s). Returns (amplified, acc', lo', hi') in the
+    same layouts."""
+    ins = (cur_lp, cur_r, cur_i, old_lp, old_r, old_i, *acc, *lo_regs, *hi_regs)
+    if len(ins) != 16:
+        raise ValueError("riesz_level_mxu: acc is 2 planes, each filter's registers 4")
+    dev = _check_planes("riesz_level_mxu", ins)
+    rebuild = bool(rebuild)
+    if dev.type == "cpu":
+        return riesz_level_mxu_plain(*ins[:6], ins[6:8], ins[8:12], ins[12:], b_lo, a_lo,
+                                     b_hi, a_hi, rebuild, alpha, threshold)
+    outs = [torch.empty_like(cur_lp) for _ in range(11)]
+    h, w = cur_lp.shape
+    coeff = _coeff_array(b_lo, a_lo, b_hi, a_hi)
+    _launch("riesz_level_mxu", "lvmt_level_tail", dev, _pointers([*ins, *outs]), h, w,
+            coeff.ctypes.data, int(rebuild), _f32(alpha), _f32(threshold),
+            _TAPS13.ctypes.data)
+    return outs[0], tuple(outs[1:3]), tuple(outs[3:7]), tuple(outs[7:11])

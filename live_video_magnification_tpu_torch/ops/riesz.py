@@ -15,14 +15,17 @@ The counterpart of the reference package's ``ops/riesz.py``
 
 The four stencils dispatch on the tensor's device (ops/hopper/stencils.py): the
 CUDA kernel for a CUDA tensor at every level, the plain version on the CPU.
-The tail (phase front, blurs, amplify) is plain PyTorch on either device, as
-the reference package leaves it to XLA by default. All planes are [H, W] f32.
+The functions here are also the plain tail (phase front, blurs, amplify),
+which ``models/riesz.py::step`` runs by default, as the reference package
+leaves its tail to XLA; the kernel tails are in ops/hopper/tail.py. All
+planes are [H, W] f32.
 """
 
 from __future__ import annotations
 
 from typing import List, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from live_video_magnification_tpu_torch.ops.conv import (
@@ -78,10 +81,26 @@ def build_riesz_pyramid(frame: torch.Tensor, levels: int) -> List[RieszLevel]:
     return pyr
 
 
-def clamped_arccos(x: torch.Tensor) -> torch.Tensor:
+PI_F32 = float(np.float32(np.pi))
+
+
+def polynomial_arccos(x: torch.Tensor) -> torch.Tensor:
+    """arccos for |x| <= 1 as the reference package's tail kernels compute it
+    (``ops/pallas/riesz_phase_fused.py::_acos``, Abramowitz & Stegun 4.4.45):
+    sqrt(1-|x|) * poly(|x|), mirrored through pi for x < 0; abs error ~1e-6
+    rad. The kernel tails (K8, K9) use it; the plain tail uses torch.arccos."""
+    ax = torch.abs(x)
+    p = (((((((-0.0012624911 * ax + 0.0066700901) * ax - 0.0170881256) * ax
+             + 0.0308918810) * ax - 0.0501743046) * ax + 0.0889789874) * ax
+          - 0.2145988016) * ax + 1.5707963050)
+    r = torch.sqrt(torch.clamp(1.0 - ax, min=0.0)) * p
+    return torch.where(x < 0.0, PI_F32 - r, r)
+
+
+def clamped_arccos(x: torch.Tensor, arccos=torch.arccos) -> torch.Tensor:
     """The reference's arcCos (:8-23): out-of-range inputs map to +-1.0, not to
     acos of the clamp. Load-bearing for parity."""
-    safe = torch.arccos(torch.clamp(x, -1.0, 1.0))
+    safe = arccos(torch.clamp(x, -1.0, 1.0))
     return torch.where(x < -1.0, -1.0, torch.where(x > 1.0, 1.0, safe))
 
 
@@ -101,13 +120,18 @@ class PhaseResult(NamedTuple):
     amplitude_blurred: torch.Tensor
 
 
-def phase_difference_and_amplitude(cur: RieszLevel, prior: RieszLevel) -> PhaseResult:
+def phase_difference_and_amplitude(cur: RieszLevel, prior: RieszLevel,
+                                   compute_blur: bool = True,
+                                   arccos=torch.arccos) -> PhaseResult:
     """computePhaseDifferenceAndAmplitude (:81-111).
 
     The quaternion conjugate product cur * conj(prior); its log gives the
     phase difference as orientation*phi; the amplitude is the square root of
-    the quaternion norm, blurred 13x13 sigma=3. Divisions by a zero norm keep
-    their IEEE results; NaN is patched to 0 as the reference does."""
+    the quaternion norm, blurred 13x13 sigma=3 (unblurred when
+    ``compute_blur`` is False: a tail kernel blurs it itself). Divisions by a
+    zero norm keep their IEEE results; NaN is patched to 0 as the reference
+    does. ``arccos`` is the arccos of the phase (``polynomial_arccos`` in the
+    kernel tails' plain versions)."""
     q_real = (
         cur.lowpass * prior.lowpass
         + cur.riesz.cos * prior.riesz.cos
@@ -120,14 +144,15 @@ def phase_difference_and_amplitude(cur: RieszLevel, prior: RieszLevel) -> PhaseR
     )
     xy_sq = q_xy.square_sum()
     q_amp = torch.sqrt(q_real * q_real + xy_sq)
-    phi = clamped_arccos(q_real / q_amp)
+    phi = clamped_arccos(q_real / q_amp, arccos)
     xy_norm = torch.sqrt(xy_sq)
     orientation = CompExp(q_xy.cos / xy_norm, q_xy.sin / xy_norm)
     phase_diff = CompExp(
         patch_nans(orientation.cos * phi), patch_nans(orientation.sin * phi)
     )
     amplitude = torch.sqrt(q_amp)
-    return PhaseResult(phase_diff, amplitude, amplitude_blur(amplitude))
+    blurred = amplitude_blur(amplitude) if compute_blur else amplitude
+    return PhaseResult(phase_diff, amplitude, blurred)
 
 
 def normalize_phase(

@@ -1,5 +1,6 @@
-"""Card-only tests of the port: the CUDA stencil kernels against their plain
-versions, and the phase chain on the card against the CPU.
+"""Card-only tests of the port: the CUDA stencil and tail kernels against
+their plain versions, and the phase step (under each tail configuration) and
+chain on the card against the CPU.
 
 Marked ``cuda``; each test decides inside itself whether a card exists and
 skips otherwise. They import neither JAX nor cv2, so they run where only torch
@@ -110,3 +111,116 @@ def test_chain_on_the_card_matches_the_cpu(cuda):
         # sin and cos do not, so a frame may move by an LSB or two
         lsb = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
         assert psnr_u8(a, b) >= 40.0, f"frame {i}: {psnr_u8(a, b):.2f} dB, max {lsb} LSB"
+
+
+# ---------------------------------------------------------------- the tail kernels
+
+TAIL_SHAPES = [(16, 16), (33, 257), (97, 201), (135, 241), (270, 480)]
+TAIL_BARS = {"riesz_phase_df2_fused": (1e-5, 1e-5), "riesz_amplify_fused": (2e-4, 1e-4),
+             "riesz_amplify_mxu": (2e-4, 1e-4), "riesz_level_mxu": (5e-4, 1e-3)}
+
+
+def _tail_args(entry, shape, arm, dev):
+    """Standard-normal planes; ``arm`` is rebuild (phase, level) or
+    preweighted (amplify, whose amplitude is a standard normal's magnitude)."""
+    from live_video_magnification_tpu_torch.ops.temporal import butterworth_bandpass_coeffs
+
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1] + 7 * arm)
+    planes = lambda n: [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+                        for _ in range(n)]
+    coeffs = [np.asarray(c, np.float32) for c in (*butterworth_bandpass_coeffs(0.7, 30.0),
+                                                  *butterworth_bandpass_coeffs(3.0, 30.0))]
+    if entry == "riesz_phase_df2_fused":
+        x = planes(18)
+        return (*x[:6], tuple(x[6:12]), tuple(x[12:]), *coeffs, arm), {}
+    if entry == "riesz_level_mxu":
+        x = planes(16)
+        return (*x[:6], tuple(x[6:8]), tuple(x[8:12]), tuple(x[12:]), *coeffs, arm,
+                30.0, 1.2), {}
+    amp, cc, cs, lp, rr, ri = planes(6)
+    amp = amp.abs()
+    if arm:
+        cc, cs = cc * amp, cs * amp
+    return (amp, cc, cs, lp, rr, ri, 30.0, 1.2), {"preweighted": arm}
+
+
+def _flat_out(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [x for part in out for x in _flat_out(part)]
+
+
+@pytest.mark.parametrize("arm", [False, True])
+@pytest.mark.parametrize("shape", TAIL_SHAPES)
+@pytest.mark.parametrize("entry", list(TAIL_BARS))
+def test_tail_kernels_match_plain_versions(cuda, entry, shape, arm):
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+
+    plain = {"riesz_phase_df2_fused": tail.riesz_phase_df2_fused_plain,
+             "riesz_amplify_fused": tail.riesz_amplify_plain,
+             "riesz_amplify_mxu": tail.riesz_amplify_plain,
+             "riesz_level_mxu": tail.riesz_level_mxu_plain}[entry]
+    args, kw = _tail_args(entry, shape, arm, cuda)
+    before = tail.LAUNCHES[entry]
+    got = _flat_out(getattr(tail, entry)(*args, **kw))
+    ref = _flat_out(plain(*args, **kw))
+    torch.cuda.synchronize()
+    assert tail.LAUNCHES[entry] == before + 1
+    assert len(got) == len(ref)
+    for k, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == r.shape and g.device == r.device
+        # K9's state planes: the reference suite's 1e-4 / 1e-4
+        atol, rtol = (1e-4, 1e-4) if entry == "riesz_level_mxu" and k else TAIL_BARS[entry]
+        torch.testing.assert_close(g, r, atol=atol, rtol=rtol, equal_nan=True,
+                                   msg=lambda m: f"{entry} plane {k}: {m}")
+
+
+def test_tail_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("riesz_phase_df2_fused_plain", "riesz_amplify_plain", "riesz_level_mxu_plain"):
+        monkeypatch.setattr(tail, name, refuse)
+    for entry in TAIL_BARS:
+        args, kw = _tail_args(entry, (40, 60), False, cuda)
+        getattr(tail, entry)(*args, **kw)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("tail_name,phase_fused", [("jnp", False), ("pallas", False),
+                                                   ("mxu", False), ("level", False),
+                                                   ("jnp", True), ("pallas", True)])
+def test_step_on_the_card_matches_the_cpu_under_each_tail(cuda, tail_name, phase_fused):
+    from live_video_magnification_tpu_torch.models import riesz
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+    from live_video_magnification_tpu_torch.ops.temporal import butterworth_bandpass_coeffs
+    from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w, levels = 135, 241, 4
+    c3 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32))
+    (b_lo, a_lo), (b_hi, a_hi) = (butterworth_bandpass_coeffs(0.5, 30.0),
+                                  butterworth_bandpass_coeffs(3.0, 30.0))
+    dyn = riesz.RieszDynParams(30.0, float(np.float32(0.4 * np.pi)), c3(b_lo), c3(a_lo),
+                               c3(b_hi), c3(a_hi), False, False)
+    gpu = riesz.init_state(h, w, levels, device=cuda)
+    cpu = riesz.init_state(h, w, levels, device="cpu")
+    before = dict(tail.LAUNCHES)
+    for i, f in enumerate(moving_clip(5, h, w, seed=6)):
+        chw = torch.from_numpy(np.ascontiguousarray(f.transpose(2, 0, 1)))
+        gpu, a = riesz.step(gpu, chw.to(cuda), dyn, levels=levels, tail=tail_name,
+                            phase_fused=phase_fused)
+        cpu, b = riesz.step(cpu, chw, dyn, levels=levels, tail=tail_name,
+                            phase_fused=phase_fused)
+        a, b = a.cpu().numpy(), b.numpy()
+        lsb = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+        assert lsb <= 1 and psnr_u8(a, b) >= 40.0, (
+            f"{tail_name}/{phase_fused} frame {i}: {psnr_u8(a, b):.2f} dB, max {lsb} LSB")
+    launched = {k for k, v in tail.LAUNCHES.items() if v > before[k]}
+    expected = {("jnp", False): set(), ("pallas", False): {"riesz_amplify_fused"},
+                ("mxu", False): {"riesz_amplify_mxu"}, ("level", False): {"riesz_level_mxu"},
+                ("jnp", True): {"riesz_phase_df2_fused"},
+                ("pallas", True): {"riesz_phase_df2_fused", "riesz_amplify_fused"}}
+    assert launched == expected[(tail_name, phase_fused)]
