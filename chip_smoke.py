@@ -23,14 +23,22 @@ checkout, then:
      same frames; outputs bit-equal, launch counts per frame as expected,
      frames magnified after the first; steady ms/frame, fps, peak memory and a
      profiler breakdown of device time;
-  4. the same slice under every other tail configuration (LVMT_TAIL pallas,
-     mxu, level; LVMT_PHASE_FUSED=1 alone and with pallas): launch counts per
-     frame as expected, frames within 1 LSB of the jnp tail's, steady
-     ms/frame, peak memory, device kernels per frame; for level also
-     ClipProcessor against the chain and a profiler breakdown; then every
-     configuration, jnp included, timed again in the reverse order;
+  4. the same slice under every other configuration (LVMT_TAIL pallas, mxu,
+     level; LVMT_PHASE_FUSED=1 alone and with pallas; LVMT_BUILD=fused; the
+     four flags of --fast): launch counts per frame as expected, frames
+     within 1 LSB of the jnp tail's (fast: >= 40 dB against the f32 mxu
+     frames, dB and max LSB logged), steady ms/frame, peak memory, device
+     kernels per frame; for level also ClipProcessor against the chain and a
+     profiler breakdown; then every configuration, jnp included, timed again
+     in the reverse order;
   5. slice on the card against the CPU: 1080x1920, levels=6, >= 40 dB a
-     frame, under the jnp and the level tails.
+     frame, under the jnp and the level tails (K5 launched once a frame, at
+     level 4) and under the fast flags;
+  6. the fused build (K5, riesz_build_level) against its plain version at odd
+     shapes, 68x120 and every 4K band level, timed beside K1+K2+K3 at the
+     same shape; every bf16 arm of K1-K4 and K6 against its plain version,
+     timed at every 4K level with a cuDNN bf16 conv2d where one computes the
+     same function.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -50,6 +58,7 @@ import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, data sheet, at 700 W
 PEAK_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores, FMA = 2 ops
+PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate, f32 accumulation
 SEED = 20261016
 REPLACES = {
     "conv9": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:287",
@@ -59,7 +68,22 @@ REPLACES = {
 }
 SOURCE = "live_video_magnification_tpu_torch/ops/hopper/csrc/stencils.cu"
 PER_FRAME = {"conv9": 10, "band5": 5, "lp9_decimate": 5, "lp9_inject": 5}  # levels=6
-STENCIL_KERNELS = ("stencil9_kernel", "band5_kernel", "inject9_kernel")  # in the CUDA source
+STENCIL_KERNELS = ("stencil9_kernel", "band5_kernel", "inject9_kernel",
+                   "build_level_kernel")  # in the CUDA source
+BUILD_REPLACES = "live_video_magnification_tpu/ops/pallas/riesz_build.py:125"
+# The bf16 operand arms (the reference's _mxu_dot bf16 branch,
+# conv9_mxu.py:89-101, in each of these kernels)
+BF16_REPLACES = {
+    "conv9[bf16]": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:287",
+    "band5[bf16]": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:482",
+    "lp9_decimate[bf16]": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:656",
+    "lp9_inject[bf16]": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:376",
+    "riesz_amplify_mxu[bf16]": "live_video_magnification_tpu/ops/pallas/riesz_amplify_mxu.py:353",
+}
+FAST_ENV = {"LVMT_MXU_DTYPE": "bf16", "LVMT_TAIL": "mxu", "LVMT_TAIL_IO": "bf16",
+            "LVMT_PYR_IO": "bf16"}  # the reference's cli.py:61-64
+FLAG_DEFAULTS = {"LVMT_TAIL": "jnp", "LVMT_PHASE_FUSED": "0", "LVMT_BUILD": "auto",
+                 "LVMT_MXU_DTYPE": "f32", "LVMT_PYR_IO": "f32", "LVMT_TAIL_IO": "f32"}
 
 TAIL_SOURCE = "live_video_magnification_tpu_torch/ops/hopper/csrc/tail.cu"
 TAIL_REPLACES = {
@@ -75,6 +99,7 @@ TAIL_KERNELS = ("phase_df2_kernel", "amplify13_kernel", "level_tail_kernel")  # 
 # three separable 13-tap blurs 150, the rotation ~19, the weighting 2.
 TAIL_OPS_PER_PIXEL = {"riesz_phase_df2_fused": 94, "riesz_amplify_fused": 171,
                       "riesz_amplify_mxu": 171, "riesz_level_mxu": 261}
+TAIL_BLUR_OPS_PER_PIXEL = 150  # of K6's 171: the ones on bf16 operands in its bf16 arm
 # planes read + written, each once (rebuild off: the prior pyramid and state are read)
 TAIL_PLANES = {"riesz_phase_df2_fused": 18 + 15, "riesz_amplify_fused": 6 + 1,
                "riesz_amplify_mxu": 6 + 1, "riesz_level_mxu": 16 + 11}
@@ -83,19 +108,30 @@ TAIL_BARS = {"riesz_phase_df2_fused": {"out": (1e-5, 1e-5)},
              "riesz_amplify_fused": {"out": (2e-4, 1e-4)},
              "riesz_amplify_mxu": {"out": (2e-4, 1e-4)},
              "riesz_level_mxu": {"out": (5e-4, 1e-3), "state": (1e-4, 1e-4)}}
-# (LVMT_TAIL, LVMT_PHASE_FUSED) -> tail launches per frame at 4K levels=6
-# (five active levels, all >= 16 px)
-TAIL_CONFIGS = {
-    ("jnp", False): {},
-    ("pallas", False): {"riesz_amplify_fused": 5},
-    ("mxu", False): {"riesz_amplify_mxu": 5},
-    ("level", False): {"riesz_level_mxu": 5},
-    ("jnp", True): {"riesz_phase_df2_fused": 5},
-    ("pallas", True): {"riesz_phase_df2_fused": 5, "riesz_amplify_fused": 5},
+# name -> (flags that differ from FLAG_DEFAULTS, kernel launches per frame
+# at 4K levels=6 besides the default build's PER_FRAME). The five active
+# levels are all >= 16 px and all >= 96, so the default build never fuses at
+# 4K; fused runs K5 on all five and K1 only in the collapse. The fast
+# pairing takes the bf16 arms wherever the reference's MXU kernels run:
+# every build level, the collapse steps onto levels 0-3 (135x240 is odd), K6
+# on all five levels.
+CONFIGS = {
+    "jnp": ({}, {}),
+    "pallas": ({"LVMT_TAIL": "pallas"}, {"riesz_amplify_fused": 5}),
+    "mxu": ({"LVMT_TAIL": "mxu"}, {"riesz_amplify_mxu": 5}),
+    "level": ({"LVMT_TAIL": "level"}, {"riesz_level_mxu": 5}),
+    "phase_fused": ({"LVMT_PHASE_FUSED": "1"}, {"riesz_phase_df2_fused": 5}),
+    "phase_fused+pallas": ({"LVMT_PHASE_FUSED": "1", "LVMT_TAIL": "pallas"},
+                           {"riesz_phase_df2_fused": 5, "riesz_amplify_fused": 5}),
+    "fused": ({"LVMT_BUILD": "fused"},
+              {"conv9": 5, "band5": 0, "lp9_decimate": 0, "riesz_build_level": 5}),
+    "fast": (FAST_ENV, {"conv9": 1, "band5": 0, "lp9_decimate": 0, "lp9_inject": 1,
+                        "conv9[bf16]": 9, "band5[bf16]": 5, "lp9_decimate[bf16]": 5,
+                        "lp9_inject[bf16]": 4, "riesz_amplify_mxu[bf16]": 5}),
 }
 # the configuration whose run supplies each tail kernel's launch count
-TAIL_MAIN_PATH = {"riesz_phase_df2_fused": ("jnp", True), "riesz_amplify_fused": ("pallas", False),
-                  "riesz_amplify_mxu": ("mxu", False), "riesz_level_mxu": ("level", False)}
+TAIL_MAIN_PATH = {"riesz_phase_df2_fused": "phase_fused", "riesz_amplify_fused": "pallas",
+                  "riesz_amplify_mxu": "mxu", "riesz_level_mxu": "level"}
 
 
 def log(**kw) -> None:
@@ -248,11 +284,11 @@ def time_phase(dev, st, sizes):
 
 
 @contextlib.contextmanager
-def tail_env(tail: str, phase_fused: bool):
-    """LVMT_TAIL / LVMT_PHASE_FUSED as the chain reads them, restored after."""
-    saved = {k: os.environ.get(k) for k in ("LVMT_TAIL", "LVMT_PHASE_FUSED")}
-    os.environ["LVMT_TAIL"] = tail
-    os.environ["LVMT_PHASE_FUSED"] = "1" if phase_fused else "0"
+def flag_env(flags):
+    """The chain's kernel flags (FLAG_DEFAULTS overridden by ``flags``) in
+    the environment, where the chain reads them; restored after."""
+    saved = {k: os.environ.get(k) for k in FLAG_DEFAULTS}
+    os.environ.update({**FLAG_DEFAULTS, **flags})
     try:
         yield
     finally:
@@ -263,16 +299,29 @@ def tail_env(tail: str, phase_fused: bool):
                 os.environ[k] = v
 
 
-def config_name(tail: str, phase_fused: bool) -> str:
-    if not phase_fused:
-        return tail
-    return "phase_fused" if tail == "jnp" else f"phase_fused+{tail}"
-
-
 def reset_counts(*modules) -> None:
     for m in modules:
-        for k in m.LAUNCHES:
-            m.LAUNCHES[k] = 0
+        for counts in (m.LAUNCHES, getattr(m, "LAUNCHES_BF16", {})):
+            for k in counts:
+                counts[k] = 0
+
+
+def launch_counts(*modules) -> dict:
+    """Every launch count of the modules; the bf16 arms as "name[bf16]"."""
+    out = {}
+    for m in modules:
+        out.update(m.LAUNCHES)
+        out.update({f"{k}[bf16]": v for k, v in getattr(m, "LAUNCHES_BF16", {}).items()})
+    return out
+
+
+def expected_counts(frames: int, per_frame: dict, *modules) -> dict:
+    """The default build's PER_FRAME updated by ``per_frame``, every other
+    count 0, times ``frames``."""
+    want = {k: 0 for k in launch_counts(*modules)}
+    want.update(PER_FRAME)
+    want.update(per_frame)
+    return {k: v * frames for k, v in want.items()}
 
 
 def tail_coeffs():
@@ -477,7 +526,7 @@ def run_chain(torch, dev, frames, cfg, modules):
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
         outs.append(processed)
-    launches = {k: v for m in modules for k, v in m.LAUNCHES.items()}
+    launches = launch_counts(*modules)
     peak = torch.cuda.max_memory_allocated(dev)
     return torch.stack(outs).cpu().numpy(), step_s, launches, peak, chain
 
@@ -492,10 +541,9 @@ def slice_4k(torch, dev, st, tl, h=2160, w=3840, t=8):
     frames = moving_clip(t, h, w, seed=SEED)
     log(phase="slice_4k_frames", seconds=time.perf_counter() - t0, shape=list(frames.shape))
 
-    with tail_env("jnp", False):
+    with flag_env({}):
         chain_out, step_s, launches, peak, chain = run_chain(torch, dev, frames, cfg, (st, tl))
-        expected = {k: v * t for k, v in PER_FRAME.items()}
-        expected.update({k: 0 for k in tl.LAUNCHES})
+        expected = expected_counts(t, {}, st, tl)
         if launches != expected:
             raise AssertionError(f"4K chain launches {launches} != expected {expected}")
         launches = {k: launches[k] for k in PER_FRAME}
@@ -513,7 +561,7 @@ def slice_4k(torch, dev, st, tl, h=2160, w=3840, t=8):
         t0 = time.perf_counter()
         processed, _ = proc.process_chunk(tchw)  # returns host arrays: synchronizes
         clip_s = time.perf_counter() - t0
-        clip_launches = dict(st.LAUNCHES)
+        clip_launches = {k: st.LAUNCHES[k] for k in PER_FRAME}
         if clip_launches != launches:
             raise AssertionError(f"4K clip launches {clip_launches} != expected {launches}")
         clip_out = processed.transpose(0, 2, 3, 1)
@@ -536,97 +584,364 @@ def slice_4k(torch, dev, st, tl, h=2160, w=3840, t=8):
     return launches, frames, chain_out
 
 
+def frame_stats(out, ref):
+    """Per frame (PSNR dB, max |diff| in u8 LSB) of two u8 stacks."""
+    from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
+
+    return ([psnr_u8(out[i], ref[i]) for i in range(len(out))],
+            [int(np.abs(out[i].astype(np.int16) - ref[i].astype(np.int16)).max())
+             for i in range(len(out))])
+
+
 def slice_4k_tails(torch, dev, st, tl, frames, jnp_out):
-    """The 4K slice under every kernel-tail configuration, each against the
-    jnp configuration's frames. Returns the launch counts of each run."""
+    """The 4K slice under every other configuration, each against the jnp
+    configuration's frames (fast against the f32 mxu frames). Returns the
+    launch counts of each run."""
     from live_video_magnification_tpu_torch.export.batch import ClipProcessor
 
     t, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
     cfg = cfg_4k()
-    runs = {}
-    for (tail, phase_fused), tail_per_frame in TAIL_CONFIGS.items():
-        if (tail, phase_fused) == ("jnp", False):
+    runs, kept = {}, {}
+    for name, (flags, per_frame) in CONFIGS.items():
+        if name == "jnp":
             continue  # slice_4k's run
-        name = config_name(tail, phase_fused)
-        with tail_env(tail, phase_fused):
+        with flag_env(flags):
             out, step_s, launches, peak, chain = run_chain(torch, dev, frames, cfg, (st, tl))
-            expected = {k: v * t for k, v in PER_FRAME.items()}
-            expected.update({k: tail_per_frame.get(k, 0) * t for k in tl.LAUNCHES})
+            expected = expected_counts(t, per_frame, st, tl)
             if launches != expected:
                 raise AssertionError(f"4K {name} launches {launches} != expected {expected}")
-            lsb = [int(np.abs(out[i].astype(np.int16) - jnp_out[i].astype(np.int16)).max())
-                   for i in range(t)]
-            if max(lsb) > 1:
+            against = "mxu" if name == "fast" else "jnp"
+            dbs, lsb = frame_stats(out, kept["mxu"] if name == "fast" else jnp_out)
+            if name == "fast" and min(dbs[1:]) < 40.0:
+                raise AssertionError(f"4K fast: frames against f32 mxu at {dbs} dB")
+            if name != "fast" and max(lsb) > 1:
                 raise AssertionError(f"4K {name}: frames off the jnp tail's by {lsb} LSB")
             kernels = device_kernels_per_frame(torch, chain, frames[2], cfg)
             extra = {}
-            if tail == "level" and not phase_fused:
+            if name in ("level", "fast"):
                 proc = ClipProcessor(cfg, h, w, 3, device=dev)
                 tchw = torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2)))
                 processed, _ = proc.process_chunk(tchw.to(dev))
                 if not np.array_equal(processed.transpose(0, 2, 3, 1), out):
-                    raise AssertionError("4K level: ClipProcessor output differs from the chain's")
+                    raise AssertionError(f"4K {name}: ClipProcessor output differs from the chain's")
                 extra["chain_equals_clip"] = True
+                extra["carried_band_dtype"] = str(proc.state.old[0].lowpass.dtype)
                 del proc, tchw, processed
             steady_ms = 1e3 * sum(step_s[2:]) / len(step_s[2:])
-            runs[(tail, phase_fused)] = launches
-            log(phase="slice_4k_tail", config=name, lvmt_tail=tail,
-                lvmt_phase_fused=phase_fused, card=torch.cuda.get_device_name(dev),
-                shape=[h, w], levels=6, frames=t, chain_step_ms=[1e3 * s for s in step_s],
-                chain_steady_ms_per_frame=steady_ms, chain_steady_fps=1e3 / steady_ms,
-                peak_memory_bytes=peak,
+            runs[name] = launches
+            log(phase="slice_4k_tail", config=name, flags=flags,
+                card=torch.cuda.get_device_name(dev), shape=[h, w], levels=6, frames=t,
+                chain_step_ms=[1e3 * s for s in step_s], chain_steady_ms_per_frame=steady_ms,
+                chain_steady_fps=1e3 / steady_ms, peak_memory_bytes=peak,
                 launches_per_frame={k: v // t for k, v in launches.items() if v},
-                device_kernels_per_frame=kernels, max_lsb_vs_jnp=lsb, **extra)
-            if tail == "level" and not phase_fused:
+                device_kernels_per_frame=kernels, frames_against=against, psnr_db=dbs,
+                **{f"max_lsb_vs_{against}": lsb}, **extra)
+            if name == "level":
                 prof = profile_chain(torch, chain, frames[:2], cfg)
                 log(phase="profile_4k_tail", config=name,
                     card=torch.cuda.get_device_name(dev), **prof)
+            if name == "mxu":
+                kept["mxu"] = out
             del chain, out  # nothing of this run stays alive into the next
 
     # The step is host-bound and its time drifts within a call, so every
     # configuration is timed a second time, in the reverse order.
-    for tail, phase_fused in reversed(list(TAIL_CONFIGS)):
-        with tail_env(tail, phase_fused):
+    for name in reversed(list(CONFIGS)):
+        with flag_env(CONFIGS[name][0]):
             step_s, peak = run_chain(torch, dev, frames, cfg, (st, tl))[1:4:2]
         steady_ms = 1e3 * sum(step_s[2:]) / len(step_s[2:])
-        log(phase="slice_4k_tail_repeat", config=config_name(tail, phase_fused),
+        log(phase="slice_4k_tail_repeat", config=name,
             card=torch.cuda.get_device_name(dev), chain_step_ms=[1e3 * s for s in step_s],
             chain_steady_ms_per_frame=steady_ms, chain_steady_fps=1e3 / steady_ms,
             peak_memory_bytes=peak)
     return runs
 
 
-def slice_card_vs_cpu(torch, dev, h=1080, w=1920, t=4, tail="jnp"):
+def slice_card_vs_cpu(torch, dev, st, tl, name="jnp", h=1080, w=1920, t=4):
+    """The 1080p flagship (levels=6) on the card against the port's CPU path
+    under CONFIGS[name]'s flags. Under the default build K5 runs once a
+    frame, at level 4 (68x120, the one level from 16 to 95). Returns the
+    card's launch counts."""
     from live_video_magnification_tpu_torch.models.chain import MagnificationChain
     from live_video_magnification_tpu_torch.models.params import (
         MagnificationMode,
         MagnificationParams,
         ProcessorConfig,
     )
-    from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
+    from live_video_magnification_tpu_torch.ops import riesz as ops_riesz
     from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
 
     levels = 6
+    flags = CONFIGS[name][0]
+    k5_shapes = []  # the shapes the card's K5 launches took
+    real_k5 = ops_riesz.riesz_build_level
+
+    def k5_seen(x, *args, **kw):
+        if x.is_cuda:
+            k5_shapes.append(tuple(x.shape))
+        return real_k5(x, *args, **kw)
+
     cfg = ProcessorConfig(magnification=MagnificationParams(
         mode=MagnificationMode.PHASE, amplification=50.0, co_wavelength=50.0,
         co_low=1.0, co_high=5.0, levels=levels, framerate=30.0))
     frames = moving_clip(t, h, w, seed=SEED + 2)
-    dbs, lsbs = [], []
+    a_frames, b_frames = [], []
     t0 = time.perf_counter()
-    with tail_env(tail, False):
+    with flag_env(flags):
         gpu, cpu = MagnificationChain(device=dev), MagnificationChain(device="cpu")
-        for i, f in enumerate(frames):
-            a = gpu.process(f, cfg)[0].cpu().numpy()
-            b = cpu.process(f, cfg)[0].numpy()
-            dbs.append(psnr_u8(a, b))
-            lsbs.append(int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max()))
-            if dbs[-1] < 40.0:
-                raise AssertionError(f"1080p {tail} frame {i}: card vs CPU {dbs[-1]:.2f} dB < 40")
-        if gpu._key.tail != tail:
-            raise AssertionError(f"1080p chain ran tail {gpu._key.tail}, not {tail}")
-    log(phase="slice_1080p_card_vs_cpu", tail=tail, card=torch.cuda.get_device_name(dev),
-        shape=[h, w], levels=levels, frames=t, psnr_db=dbs, max_lsb=lsbs,
+        reset_counts(st, tl)
+        ops_riesz.riesz_build_level = k5_seen
+        try:
+            for f in frames:
+                a_frames.append(gpu.process(f, cfg)[0].cpu().numpy())
+        finally:
+            ops_riesz.riesz_build_level = real_k5
+        torch.cuda.synchronize()
+        launches = launch_counts(st, tl)
+        for f in frames:
+            b_frames.append(cpu.process(f, cfg)[0].numpy())
+        key = gpu._key
+    dbs, lsbs = frame_stats(a_frames, b_frames)
+    if min(dbs) < 40.0:
+        raise AssertionError(f"1080p {name}: card vs CPU {dbs} dB, some under 40")
+    if (key.tail, key.build, key.mxu_dtype, key.pyr_io, key.tail_io) != (
+            flags.get("LVMT_TAIL", "jnp"), flags.get("LVMT_BUILD", "auto"),
+            flags.get("LVMT_MXU_DTYPE", "f32"), flags.get("LVMT_PYR_IO", "f32"),
+            flags.get("LVMT_TAIL_IO", "f32")):
+        raise AssertionError(f"1080p chain ran the key {key}, not the flags {flags}")
+    if launches["riesz_build_level"] != t or set(k5_shapes) != {(68, 120)}:
+        raise AssertionError(f"1080p {name}: K5 launched {launches['riesz_build_level']} "
+                             f"times in {t} frames at {set(k5_shapes)}, not once a frame "
+                             "at level 4 (68x120)")
+    log(phase="slice_1080p_card_vs_cpu", config=name, flags=flags,
+        card=torch.cuda.get_device_name(dev), shape=[h, w], levels=levels, frames=t,
+        psnr_db=dbs, max_lsb=lsbs,
+        launches_per_frame={k: v / t for k, v in launches.items() if v},
         seconds=time.perf_counter() - t0)
+    return launches
+
+
+def bound(nbytes: float, ops: float, bf16_ops: float = 0.0):
+    """(bound ms, what bounds it) on the published H100 SXM peaks: ``ops`` on
+    f32 operands at the f32 rate, ``bf16_ops`` on bf16 operands at the bf16
+    tensor rate."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = (ops / PEAK_F32_OPS_PER_S + bf16_ops / PEAK_BF16_OPS_PER_S) * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
+def build_kernel_check(dev, st, sizes):
+    """K5 against its plain version on the card, both output dtypes, at odd
+    shapes, 1080p's level 4 and every 4K band level."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 5)
+    shapes = [(16, 16), (33, 257), (97, 201), (135, 241), (68, 120)] + list(sizes[:-1])
+    worst = 0.0
+    for shape in shapes:
+        x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100.0).to(dev)
+        for od in ("f32", "bf16"):
+            got = st.riesz_build_level(x, out_dtype=od)
+            ref = st.riesz_build_level_plain(x, od)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                if g.shape != r.shape or g.dtype != r.dtype:
+                    raise AssertionError(f"riesz_build_level at {shape}: {g.shape} {g.dtype} "
+                                         f"vs {r.shape} {r.dtype}")
+                err = float((g.float() - r.float()).abs().max())
+                bar = 1e-6 * max(1.0, float(r.float().abs().max()))
+                if not err <= bar:
+                    raise AssertionError(f"riesz_build_level at {shape} ({od}): max |kernel - "
+                                         f"plain| {err} > {bar}")
+                worst = max(worst, err)
+    log(phase="build_kernel_check", kernel="riesz_build_level", shapes=[list(s) for s in shapes],
+        out_dtypes=["f32", "bf16"], max_abs_err=worst,
+        tolerance="1e-06 x max(1, max|plain|)")
+    return worst
+
+
+def build_kernel_time(dev, st, sizes):
+    """ms of K5 (f32 outputs, the fused route) and of its plain version at
+    1080p's level 4 and every 4K band level, beside K1+K2+K3 at the same
+    shape, with the bound from this run's shapes."""
+    from live_video_magnification_tpu_torch.ops.kernels import (
+        LOWPASS_2X,
+        RIESZ_BAND_KERNEL,
+        RIESZ_HIGHPASS_9x9,
+    )
+    import torch
+
+    rng = np.random.default_rng(SEED + 6)
+    nnz = lambda k: int(np.count_nonzero(k))
+    rows = []
+    for lvl, (h, w) in [(4, (68, 120))] + list(enumerate(sizes[:-1])):
+        x = torch.from_numpy(rng.random((h, w), dtype=np.float32) * 100.0).to(dev)
+        hp = st.conv9(x, RIESZ_HIGHPASS_9x9)
+        iters = 50 if h * w > 4e6 else 200
+        ms = cuda_ms(lambda: st.riesz_build_level(x), iters)
+        plain_ms = cuda_ms(lambda: st.riesz_build_level_plain(x), max(5, iters // 10), warmup=1)
+        three = {"conv9": cuda_ms(lambda: st.conv9(x, RIESZ_HIGHPASS_9x9), iters),
+                 "band5": cuda_ms(lambda: st.band5(hp, RIESZ_BAND_KERNEL), iters),
+                 "lp9_decimate": cuda_ms(lambda: st.lp9_decimate(x, LOWPASS_2X), iters)}
+        oh, ow = (h + 1) // 2, (w + 1) // 2
+        nbytes = (h * w + 3 * h * w + oh * ow) * 4  # 1 read, 3 writes, 1/4 write
+        ops = (2 * nnz(RIESZ_HIGHPASS_9x9) * h * w + 2 * 2 * nnz(RIESZ_BAND_KERNEL) * h * w
+               + 2 * nnz(LOWPASS_2X) * oh * ow)
+        bound_ms, bound_by = bound(nbytes, ops)
+        rows.append(dict(kernel="riesz_build_level", level=lvl, shape=[h, w],
+                         grid="1080p" if (h, w) == (68, 120) else "4K", ms=ms,
+                         plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                         bound_share=bound_ms / ms, bound_by=bound_by, bytes=nbytes,
+                         operations=ops, k1_k2_k3_ms=three,
+                         k1_k2_k3_sum_ms=sum(three.values())))
+        log(phase="build_kernel_time", **rows[-1])
+    return rows
+
+
+def bf16_cases(st, tl, rng, dev, shape, small=None):
+    """(arm name, kernel call, plain call) of every bf16 arm at one shape, on
+    the fast pairing's dtypes: conv9 f32 -> bf16 (the build) and f32 -> f32
+    (the collapse), band5 bf16 -> bf16, lp9_decimate and lp9_inject f32, K6
+    on six bf16 planes, both preweighted arms."""
+    import torch
+    from live_video_magnification_tpu_torch.ops.kernels import (
+        LOWPASS_2X,
+        RIESZ_BAND_KERNEL,
+        RIESZ_HIGHPASS_9x9,
+    )
+
+    h, w = shape
+    plane = lambda hw, scale=100.0: torch.from_numpy(
+        rng.standard_normal(hw, dtype=np.float32) * scale).to(dev)
+    x = plane(shape)
+    hp = plane(shape).to(torch.bfloat16)
+    sm = plane(small or ((h + 1) // 2, (w + 1) // 2))
+    six = [plane(shape, 1.0) for _ in range(6)]
+    six[0] = six[0].abs()
+    b6 = [p.to(torch.bfloat16) for p in six]
+    b6w = b6[:1] + [(p.float() * six[0]).to(torch.bfloat16) for p in six[1:3]] + b6[3:]
+    k9, t5 = RIESZ_HIGHPASS_9x9, RIESZ_BAND_KERNEL
+    return [
+        ("conv9[bf16]", lambda: st.conv9(x, k9, bf16=True, out_dtype="bf16"),
+         lambda: st.conv9_plain(x, k9, True, "bf16")),
+        ("conv9[bf16]", lambda: st.conv9(x, k9, bf16=True),
+         lambda: st.conv9_plain(x, k9, True)),
+        ("band5[bf16]", lambda: st.band5(hp, t5, bf16=True, out_dtype="bf16"),
+         lambda: st.band5_plain(hp, t5, True, "bf16")),
+        ("lp9_decimate[bf16]", lambda: st.lp9_decimate(x, LOWPASS_2X, bf16=True),
+         lambda: st.lp9_decimate_plain(x, LOWPASS_2X, True)),
+        ("lp9_inject[bf16]", lambda: st.lp9_inject(sm, LOWPASS_2X, shape, bf16=True),
+         lambda: st.lp9_inject_plain(sm, LOWPASS_2X, shape, True)),
+        ("riesz_amplify_mxu[bf16]", lambda: tl.riesz_amplify_mxu(*b6, 50.0, 1.2, bf16=True),
+         lambda: tl.riesz_amplify_plain(*b6, 50.0, 1.2, bf16=True)),
+        ("riesz_amplify_mxu[bf16]",
+         lambda: tl.riesz_amplify_mxu(*b6w, 50.0, 1.2, preweighted=True, bf16=True),
+         lambda: tl.riesz_amplify_plain(*b6w, 50.0, 1.2, preweighted=True, bf16=True)),
+    ]
+
+
+def bf16_kernel_check(dev, st, tl, sizes):
+    """Every bf16 arm against its plain version on the card at odd shapes and
+    every 4K level (the collapse's inject onto each level from the next)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 7)
+    shapes = [(16, 16), (33, 257), (97, 201), (135, 241)] + list(sizes[:-1])
+    smalls = [None] * 4 + list(sizes[1:])
+    worst = {k: 0.0 for k in BF16_REPLACES}
+    for shape, small in zip(shapes, smalls):
+        for name, kernel, plain in bf16_cases(st, tl, rng, dev, shape, small):
+            got, ref = kernel(), plain()
+            got = got if isinstance(got, tuple) else (got,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                if g.shape != r.shape or g.dtype != r.dtype:
+                    raise AssertionError(f"{name} at {shape}: {g.shape} {g.dtype} vs "
+                                         f"{r.shape} {r.dtype}")
+                err = float((g.float() - r.float()).abs().max())
+                bar = 1e-6 * max(1.0, float(r.float().abs().max()))
+                if not err <= bar:
+                    raise AssertionError(f"{name} at {shape}: max |kernel - plain| {err} > {bar}")
+                worst[name] = max(worst[name], err)
+    for name, err in worst.items():
+        log(phase="bf16_kernel_check", kernel=name, shapes=[list(s) for s in shapes],
+            max_abs_err=err, tolerance="1e-06 x max(1, max|plain|)")
+    return worst
+
+
+def bf16_kernel_time(dev, st, tl, sizes):
+    """ms of each bf16 arm on the fast pairing's dtypes, of its plain version
+    and of a cuDNN bf16 conv2d where one computes the same function, at every
+    4K level; bound from this run's shapes at those dtypes."""
+    import torch
+    from live_video_magnification_tpu_torch.ops.kernels import (
+        LOWPASS_2X,
+        RIESZ_BAND_KERNEL,
+        RIESZ_HIGHPASS_9x9,
+    )
+
+    rng = np.random.default_rng(SEED + 8)
+    nnz = lambda k: int(np.count_nonzero(k))
+
+    def conv_bf16(k, out=1, stride=1):
+        m = torch.nn.Conv2d(1, out, k.shape[-1], stride=stride, padding=k.shape[-1] // 2,
+                            padding_mode="reflect", bias=False)
+        with torch.no_grad():
+            m.weight.copy_(torch.from_numpy(np.ascontiguousarray(k, np.float32)).reshape(m.weight.shape))
+        return m.to(dev, torch.bfloat16)
+
+    band_w = np.zeros((2, 1, 5, 5), np.float32)
+    band_w[0, 0, 2, :] = RIESZ_BAND_KERNEL
+    band_w[1, 0, :, 2] = RIESZ_BAND_KERNEL
+    # cuDNN's bf16 conv2d rounds every tap and its output to bf16: the arms
+    # differ from it only there, band5 in its i taps (rounded after the f32
+    # sum in the arm), lp9_decimate in its output (f32 in the arm)
+    lib = {"conv9[bf16]": conv_bf16(RIESZ_HIGHPASS_9x9), "band5[bf16]": conv_bf16(band_w, 2),
+           "lp9_decimate[bf16]": conv_bf16(LOWPASS_2X, stride=2)}
+    lib_note = {
+        "conv9[bf16]": "cuDNN conv2d, bf16",
+        "band5[bf16]": "cuDNN conv2d, bf16 (rounds the i taps; the arm rounds the i sum)",
+        "lp9_decimate[bf16]": "cuDNN conv2d stride 2, bf16 (rounds its output; the arm writes f32)",
+        "lp9_inject[bf16]": "none: no PyTorch call has reflect-101 on the injected array",
+        "riesz_amplify_mxu[bf16]": "none: no PyTorch call computes it",
+    }
+    rows = []
+    for lvl in range(len(sizes) - 1):
+        (h, w), small = sizes[lvl], sizes[lvl + 1]
+        hw, shw = h * w, small[0] * small[1]
+        oh, ow = (h + 1) // 2, (w + 1) // 2
+        # one case per arm (the first of each name): the fast build's conv9
+        # (f32 -> bf16) and K6 not preweighted
+        cases = {n: (k, p) for n, k, p in reversed(bf16_cases(st, tl, rng, dev, (h, w), small))}
+        k6_ops = TAIL_OPS_PER_PIXEL["riesz_amplify_mxu"] * hw
+        k6_bf16 = TAIL_BLUR_OPS_PER_PIXEL * hw
+        spec = {  # bytes at the fast pairing's dtypes, f32-operand and bf16-operand operations
+            "conv9[bf16]": ((4 + 2) * hw, 0, 2 * nnz(RIESZ_HIGHPASS_9x9) * hw),
+            "band5[bf16]": ((2 + 2 * 2) * hw, 0, 2 * 2 * nnz(RIESZ_BAND_KERNEL) * hw),
+            "lp9_decimate[bf16]": (4 * (hw + oh * ow), 0, 2 * 81 * oh * ow),
+            "lp9_inject[bf16]": (4 * (shw + hw), 0, 2 * 81 * hw // 4),
+            "riesz_amplify_mxu[bf16]": ((6 * 2 + 4) * hw, k6_ops - k6_bf16, k6_bf16),
+        }
+        iters = 50 if lvl == 0 else 200
+        for name in BF16_REPLACES:
+            kernel, plain = cases[name]
+            ms = cuda_ms(kernel, iters)
+            plain_ms = cuda_ms(plain, max(5, iters // 10), warmup=1)
+            lib_ms = None
+            if name in lib:
+                inp = torch.from_numpy(rng.standard_normal((1, 1, h, w), dtype=np.float32)).to(
+                    dev, torch.bfloat16)
+                with torch.no_grad():
+                    lib_ms = cuda_ms(lambda: lib[name](inp), iters)
+            nbytes, ops, bf16_ops = spec[name]
+            bound_ms, bound_by = bound(nbytes, ops, bf16_ops)
+            rows.append(dict(kernel=name, level=lvl, shape=[h, w], ms=ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library=lib_note[name],
+                             bound_ms=bound_ms, bound_share=bound_ms / ms, bound_by=bound_by,
+                             bytes=nbytes, operations=ops, bf16_operations=bf16_ops))
+            log(phase="bf16_kernel_time", **rows[-1])
+    return rows
 
 
 def main() -> int:
@@ -665,32 +980,68 @@ def main() -> int:
     times = time_phase(dev, st, sizes)
     tail_errs = tail_kernel_check(dev, tl, sizes)
     tail_times = tail_kernel_time(dev, tl, sizes)
+    build_err = build_kernel_check(dev, st, sizes)
+    build_times = build_kernel_time(dev, st, sizes)
+    bf16_errs = bf16_kernel_check(dev, st, tl, sizes)
+    bf16_times = bf16_kernel_time(dev, st, tl, sizes)
     launches, frames, jnp_out = slice_4k(torch, dev, st, tl)
-    tail_runs = slice_4k_tails(torch, dev, st, tl, frames, jnp_out)
+    runs = slice_4k_tails(torch, dev, st, tl, frames, jnp_out)
     del frames, jnp_out
-    slice_card_vs_cpu(torch, dev)
-    slice_card_vs_cpu(torch, dev, tail="level")
+    flagship = slice_card_vs_cpu(torch, dev, st, tl, "jnp")
+    slice_card_vs_cpu(torch, dev, st, tl, "level")
+    slice_card_vs_cpu(torch, dev, st, tl, "fast")
 
+    path = lambda name: " ".join(f"{k}={v}" for k, v in CONFIGS[name][0].items()) or "defaults"
+    level0 = lambda rows, k: next(r for r in rows if r["kernel"] == k and r["level"] == 0
+                                  and r.get("grid", "4K") == "4K")
     kernels = []
     for k in PER_FRAME:
-        top = next(r for r in times if r["kernel"] == k and r["level"] == 0)
+        top = level0(times, k)
         kernels.append(dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
-                            launches=launches[k], max_abs_err=errs[k], ms=top["ms"],
+                            launches=launches[k], path=path("jnp"), max_abs_err=errs[k],
+                            ms=top["ms"],
                             plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                             bound_by=top["bound_by"], library_ms=top["library_ms"],
                             shape=top["shape"]))
     for k in TAIL_REPLACES:
-        top = next(r for r in tail_times if r["kernel"] == k and r["level"] == 0)
-        launched = tail_runs[TAIL_MAIN_PATH[k]][k]
+        top = level0(tail_times, k)
+        launched = runs[TAIL_MAIN_PATH[k]][k]
         if launched == 0:
             raise AssertionError(f"{k} was not launched on its path")
         kernels.append(dict(name=k, route="cuda", source=TAIL_SOURCE, replaces=TAIL_REPLACES[k],
-                            launches=launched,
-                            path="LVMT_TAIL=" + TAIL_MAIN_PATH[k][0]
-                            + (" LVMT_PHASE_FUSED=1" if TAIL_MAIN_PATH[k][1] else ""),
+                            launches=launched, path=path(TAIL_MAIN_PATH[k]),
                             max_abs_err=tail_errs[k], ms=top["ms"], plain_ms=top["plain_ms"],
                             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                             library_ms=None, shape=top["shape"]))
+    # K5's numbers at 68x120, the shape of the 1080p default path whose
+    # launches are shown; the 4K fused route's level 0 beside them
+    top = next(r for r in build_times if r["grid"] == "1080p")
+    top4k = level0(build_times, "riesz_build_level")
+    if flagship["riesz_build_level"] == 0 or runs["fused"]["riesz_build_level"] == 0:
+        raise AssertionError("riesz_build_level was not launched on its paths")
+    kernels.append(dict(name="riesz_build_level", route="cuda", source=SOURCE,
+                        replaces=BUILD_REPLACES, launches=flagship["riesz_build_level"],
+                        path="1080p levels=6, defaults (level 4, 68x120)",
+                        max_abs_err=build_err, ms=top["ms"], plain_ms=top["plain_ms"],
+                        bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
+                        shape=top["shape"], k1_k2_k3_sum_ms=top["k1_k2_k3_sum_ms"],
+                        fused_4k=dict(path=path("fused"),
+                                      launches=runs["fused"]["riesz_build_level"],
+                                      shape=top4k["shape"], ms=top4k["ms"],
+                                      plain_ms=top4k["plain_ms"], bound_ms=top4k["bound_ms"],
+                                      bound_by=top4k["bound_by"],
+                                      k1_k2_k3_sum_ms=top4k["k1_k2_k3_sum_ms"])))
+    for k, replaces in BF16_REPLACES.items():
+        top = level0(bf16_times, k)
+        launched = runs["fast"][k]
+        if launched == 0:
+            raise AssertionError(f"{k} was not launched on its path")
+        kernels.append(dict(name=k, route="cuda",
+                            source=TAIL_SOURCE if k.startswith("riesz") else SOURCE,
+                            replaces=replaces, launches=launched, path=path("fast"),
+                            max_abs_err=bf16_errs[k], ms=top["ms"], plain_ms=top["plain_ms"],
+                            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
+                            library_ms=top["library_ms"], shape=top["shape"]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

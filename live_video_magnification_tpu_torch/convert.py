@@ -12,7 +12,7 @@ This module imports no JAX: callers hand over numpy arrays.
 
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -45,23 +45,28 @@ def tree_unflatten(like: Any, leaves: Sequence[Any]) -> Any:
 
 
 def state_to_numpy(state: Any) -> List[np.ndarray]:
-    """The state's leaves as host numpy arrays (count as an int32 scalar)."""
+    """The state's leaves as host numpy arrays (count as an int32 scalar).
+    bfloat16 leaves come out as float32, which holds them exactly: numpy has
+    no bfloat16."""
     return [
-        leaf.detach().cpu().numpy() if isinstance(leaf, torch.Tensor)
-        else np.asarray(leaf, np.int32)
+        (leaf.detach().float() if leaf.dtype == torch.bfloat16 else leaf.detach()).cpu().numpy()
+        if isinstance(leaf, torch.Tensor) else np.asarray(leaf, np.int32)
         for leaf in tree_leaves(state)
     ]
 
 
 def state_from_numpy(like: Any, leaves: Sequence[np.ndarray], device) -> Any:
-    """Leaves from ``state_to_numpy`` (or a JAX run) in the layout of ``like``.
-    An int leaf of ``like`` (the frame count) stays a host int."""
+    """Leaves from ``state_to_numpy`` (or a JAX run) in the layout of ``like``,
+    cast to its leaf dtypes. An int leaf of ``like`` (the frame count) stays a
+    host int. Floating leaves go through float32, so a bfloat16 array of any
+    library that numpy can cast (JAX's) is taken as well."""
     ref = tree_leaves(like)
     if len(ref) != len(leaves):
         raise ValueError(f"expected {len(ref)} state leaves, got {len(leaves)}")
     out = []
     for r, leaf in zip(ref, leaves):
-        a = np.asarray(leaf)
+        floating = isinstance(r, torch.Tensor) and r.is_floating_point()
+        a = np.asarray(leaf, np.float32) if floating else np.asarray(leaf)
         if isinstance(r, torch.Tensor):
             if tuple(a.shape) != tuple(r.shape):
                 raise ValueError(f"state leaf shape {a.shape} != expected {tuple(r.shape)}")
@@ -71,16 +76,23 @@ def state_from_numpy(like: Any, leaves: Sequence[np.ndarray], device) -> Any:
     return tree_unflatten(like, out)
 
 
-def riesz_state_from_jax(leaves: Sequence[np.ndarray], device=None):
+def riesz_state_from_jax(leaves: Sequence[np.ndarray], device=None,
+                         pyr_io: Optional[str] = None):
     """The port's RieszState from the JAX RieszState's leaves (numpy, in
-    ``jax.tree.flatten`` order), on ``device`` (CUDA by default)."""
+    ``jax.tree.flatten`` order), on ``device`` (CUDA by default). ``pyr_io``
+    is the dtype of the carried band levels; by default the first leaf of the
+    prior pyramid tells it (a JAX state under LVMT_PYR_IO=bf16 carries
+    bfloat16 band levels)."""
     n = len(leaves)
     if (n + 9) % 13:
         raise ValueError(f"{n} leaves is not a RieszState (13*levels - 9 leaves)")
     levels = (n + 9) // 13
     h, w = np.shape(leaves[1])
+    if pyr_io is None:
+        pyr_io = "bf16" if str(np.asarray(leaves[1]).dtype) == "bfloat16" else "f32"
     dev = resolve_device(device)
-    return state_from_numpy(init_state(h, w, levels, device="cpu"), leaves, dev)
+    like = init_state(h, w, levels, device="cpu", pyr_io=pyr_io)
+    return state_from_numpy(like, leaves, dev)
 
 
 def riesz_dyn_from_jax(dyn: Any) -> RieszDynParams:

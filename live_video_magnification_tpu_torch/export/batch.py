@@ -24,7 +24,10 @@ from live_video_magnification_tpu_torch.models.params import ProcessorConfig
 # Carried-state format, as the reference package's: v2 is the 10-plane
 # RieszState with the shared phase accumulator.
 STATE_FORMAT_VERSION = 2
-_TAIL_FIELDS = ("phase_fused", "tail")
+# The static key's kernel flags: they enter the digest only where they differ
+# from their defaults, so a checkpoint written before the key had them (the
+# same state layout) still loads.
+_FLAG_FIELDS = ("phase_fused", "tail", "build", "mxu_dtype", "pyr_io", "tail_io")
 
 
 class ClipProcessor:
@@ -62,12 +65,12 @@ class ClipProcessor:
     # -- checkpoint / resume ---------------------------------------------------------------------
 
     def _config_digest(self) -> str:
-        """A digest of the static key and the config. The tail fields enter
+        """A digest of the static key and the config. The flag fields enter
         it only where they differ from their defaults, so a checkpoint
         written before the key had them (same state layout) still loads."""
         key, defaults = self.key, type(self.key)._field_defaults
         shown = [f for f in key._fields
-                 if f not in _TAIL_FIELDS or getattr(key, f) != defaults[f]]
+                 if f not in _FLAG_FIELDS or getattr(key, f) != defaults[f]]
         key_repr = (f"{type(key).__name__}("
                     + ", ".join(f"{f}={getattr(key, f)!r}" for f in shown) + ")")
         return hashlib.sha256((key_repr + repr(self.cfg)).encode()).hexdigest()[:16]

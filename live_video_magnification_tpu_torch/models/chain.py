@@ -73,11 +73,17 @@ class _StaticKey(NamedTuple):
     grayscale: bool
     geometry: Tuple[int, int, int, int, int, int]
     framerate: float
-    # The per-level tail (LVMT_PHASE_FUSED, LVMT_TAIL), read from the
-    # environment once per frame into the key, so changing a flag builds a
-    # new step instead of reusing a stale one.
+    # The kernel flags (LVMT_PHASE_FUSED, LVMT_TAIL, LVMT_BUILD,
+    # LVMT_MXU_DTYPE, LVMT_PYR_IO, LVMT_TAIL_IO), read from the environment
+    # once per frame into the key, so changing a flag builds a new step (and
+    # a new state: pyr_io is the carried pyramid's dtype) instead of reusing
+    # a stale one. Full value strings, as the reference's key.
     phase_fused: bool = False
     tail: str = "jnp"
+    build: str = "auto"
+    mxu_dtype: str = "f32"
+    pyr_io: str = "f32"
+    tail_io: str = "f32"
 
 
 class ChainStep(NamedTuple):
@@ -132,10 +138,12 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
     if mode is MagnificationMode.PHASE and key.channels >= 3:
         def model_step(state, frame, dyn):
             return riesz_mode.step(state, frame, dyn, levels=levels, tail=key.tail,
-                                   phase_fused=key.phase_fused)
+                                   phase_fused=key.phase_fused, build=key.build,
+                                   mxu_dtype=key.mxu_dtype, pyr_io=key.pyr_io,
+                                   tail_io=key.tail_io)
 
         def init():
-            return riesz_mode.init_state(oh, ow, levels, device=device)
+            return riesz_mode.init_state(oh, ow, levels, device=device, pyr_io=key.pyr_io)
     else:  # NONE, too-small frames (levels < 1), or phase on gray: identity
         model_step = None
 
@@ -229,11 +237,16 @@ class MagnificationChain:
         if mode is not MagnificationMode.NONE and max_levels < 1:
             mode = MagnificationMode.NONE  # too small to magnify -> identity
         levels = min(max(cfg.magnification.levels, 1), max(max_levels, 1))
+        flags = dict(tail=os.environ.get("LVMT_TAIL", "jnp"),
+                     build=os.environ.get("LVMT_BUILD", "auto"),
+                     mxu_dtype=os.environ.get("LVMT_MXU_DTYPE", "f32"),
+                     pyr_io=os.environ.get("LVMT_PYR_IO", "f32"),
+                     tail_io=os.environ.get("LVMT_TAIL_IO", "f32"))
+        riesz_mode.resolve_flags(**flags)
         return _StaticKey(
             mode, levels, mag_channels, channels, h, w, bool(cfg.grayscale), geometry,
             float(cfg.magnification.framerate),
-            os.environ.get("LVMT_PHASE_FUSED", "0") == "1",
-            riesz_mode.resolve_tail(os.environ.get("LVMT_TAIL", "jnp")),
+            os.environ.get("LVMT_PHASE_FUSED", "0") == "1", **flags,
         )
 
     def process(self, frame_u8_hwc, cfg: ProcessorConfig):

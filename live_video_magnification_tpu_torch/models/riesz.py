@@ -10,7 +10,9 @@ The counterpart of the reference package's ``models/riesz.py``
   back into Lab -> BGR u8.
 
 State is a NamedTuple of tensors laid out as the reference's, so checkpoints
-and ``convert.py`` map leaf for leaf. ``count`` is a host int: the first-frame
+and ``convert.py`` map leaf for leaf. Under ``pyr_io="bf16"`` the carried
+prior pyramid's band levels are bfloat16, as the reference's; the residual
+octave and every filter plane stay f32. ``count`` is a host int: the first-frame
 test then costs no device-to-host sync. The per-frame flags are host bools,
 so rebuilding the prior pyramid and zeroing the filters select tensors instead
 of masking them. ``step`` is functional: it returns a new state and leaves the
@@ -31,14 +33,19 @@ from live_video_magnification_tpu_torch.ops.color import (
     u8_to_unit_f32,
 )
 from live_video_magnification_tpu_torch.ops.hopper import tail as kernel_tails
+from live_video_magnification_tpu_torch.ops.hopper.stencils import resolve_dtype
 from live_video_magnification_tpu_torch.ops.riesz import (
+    MIN_MXU_SIDE,
     RieszLevel,
     amplify_level,
     amplitude_blur,
     build_riesz_pyramid,
     collapse_riesz_pyramid,
+    level_f32,
     normalize_phase,
     phase_difference_and_amplitude,
+    resolve_build,
+    resolve_mxu_dtype,
     riesz_level_sizes,
 )
 from live_video_magnification_tpu_torch.ops.temporal import CompExp, riesz_df2_step
@@ -85,13 +92,19 @@ def _zeros_like_pair(c: CompExp) -> CompExp:
     return CompExp(torch.zeros_like(c.cos), torch.zeros_like(c.sin))
 
 
-def init_state(h: int, w: int, levels: int, device=None) -> RieszState:
+def init_state(h: int, w: int, levels: int, device=None, pyr_io: str = "f32") -> RieszState:
     """Zero state for (h, w) frames. ``device`` defaults to CUDA and raises
-    without a card; pass ``device="cpu"`` for the CPU."""
+    without a card; pass ``device="cpu"`` for the CPU. ``pyr_io`` is the
+    dtype of the carried band levels ("f32" or "bf16")."""
     dev = resolve_device(device)
+    band = resolve_dtype(pyr_io)
     sizes = riesz_level_sizes(h, w, levels)
-    z = lambda lh, lw: torch.zeros((lh, lw), dtype=torch.float32, device=dev)
-    old = tuple(RieszLevel(z(lh, lw), CompExp(z(lh, lw), z(lh, lw))) for lh, lw in sizes)
+    z = lambda lh, lw, dt=torch.float32: torch.zeros((lh, lw), dtype=dt, device=dev)
+    old = tuple(
+        RieszLevel(z(lh, lw, dt), CompExp(z(lh, lw, dt), z(lh, lw, dt)))
+        for lvl, (lh, lw) in enumerate(sizes)
+        for dt in [band if lvl < levels - 1 else torch.float32]
+    )
     active = sizes[: levels - 1]
     acc = tuple(CompExp(z(lh, lw), z(lh, lw)) for lh, lw in active)
     regs = lambda: tuple(
@@ -108,6 +121,16 @@ def resolve_tail(tail: str) -> str:
     return tail
 
 
+def resolve_flags(tail: str = "jnp", build: str = "auto", mxu_dtype: str = "f32",
+                  pyr_io: str = "f32", tail_io: str = "f32") -> None:
+    """Raises on any value the port does not implement."""
+    resolve_tail(tail)
+    resolve_build(build)
+    resolve_mxu_dtype(mxu_dtype)
+    resolve_dtype(pyr_io)
+    resolve_dtype(tail_io)
+
+
 def _unflat(regs) -> RegPair:
     """(r0_c, r0_s, r1_c, r1_s) as a RegPair."""
     return RegPair(CompExp(regs[0], regs[1]), CompExp(regs[2], regs[3]))
@@ -118,9 +141,17 @@ def _flat(rp: RegPair) -> Tuple[torch.Tensor, ...]:
 
 
 def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
-         levels: int, tail: str = "jnp", phase_fused: bool = False
+         levels: int, tail: str = "jnp", phase_fused: bool = False, build: str = "auto",
+         mxu_dtype: str = "f32", pyr_io: str = "f32", tail_io: str = "f32"
          ) -> Tuple[RieszState, torch.Tensor]:
     """One frame: [3, H, W] uint8 BGR in, (new state, [3, H, W] uint8) out.
+
+    ``build``, ``mxu_dtype`` and ``pyr_io`` select the pyramid build and the
+    collapse's operands as the reference package's LVMT_BUILD,
+    LVMT_MXU_DTYPE and LVMT_PYR_IO do (``ops/riesz.py``); ``tail_io`` is the
+    dtype of K6's amplitude and change planes (LVMT_TAIL_IO). The default
+    values are the f32 path; the four of ``--fast`` are mxu_dtype="bf16",
+    tail="mxu", tail_io="bf16", pyr_io="bf16".
 
     ``tail`` and ``phase_fused`` select the per-level tail as the reference
     package's LVMT_TAIL and LVMT_PHASE_FUSED do; the caller resolves them
@@ -133,14 +164,21 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
          amplify_level;
       2. tail == "level": K9 (riesz_level_mxu), the whole tail in one kernel;
       3. tail == "mxu": the plain front and DF-II, then K6 (riesz_amplify_mxu);
+         with its fast arms (tail_io planes, pyr_io planes, bf16 operands
+         under mxu_dtype == "bf16") only where the short side is at least
+         MIN_MXU_SIDE, the levels the reference gives its kernel; below
+         that K6's f32 arm on f32 copies, the function of the reference's
+         plain tail there;
       4. tail == "pallas": the plain front and DF-II, then K7;
       5. tail == "jnp": the plain tail throughout.
 
-    Smaller levels take the plain tail. On a CPU tensor every kernel entry
-    point runs its plain version."""
-    resolve_tail(tail)
+    Smaller levels take the plain tail. bf16 pyramid planes reach the front,
+    K7, K8 and K9 as f32 copies. On a CPU tensor every kernel entry point
+    runs its plain version."""
+    resolve_flags(tail, build, mxu_dtype, pyr_io, tail_io)
     lab = bgr_to_lab(u8_to_unit_f32(frame_u8))
-    cur = build_riesz_pyramid(lab[0], levels)
+    cur = build_riesz_pyramid(lab[0], levels, build=build, mxu_dtype=mxu_dtype,
+                              pyr_io=pyr_io)
 
     first = state.count == 0
     rebuild_old = first or dyn.reset_filters or dyn.force_init
@@ -152,14 +190,15 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
     new_hi: List[RegPair] = []
     lowpasses: List[torch.Tensor] = []
     for lvl in range(levels - 1):
-        c = cur[lvl]
+        stored = cur[lvl]
+        c = level_f32(stored)
         kernel_tail = min(c.lowpass.shape) >= kernel_tails.MIN_SIDE
         acc, lo, hi = state.acc[lvl], state.lo[lvl], state.hi[lvl]
         if kernel_tail and (phase_fused or tail == "level"):
             # the kernels take the raw prior pyramid and state and apply the
             # rebuild selection themselves
-            raw = (c.lowpass, c.riesz.cos, c.riesz.sin, state.old[lvl].lowpass,
-                   state.old[lvl].riesz.cos, state.old[lvl].riesz.sin)
+            o = level_f32(state.old[lvl])
+            raw = (c.lowpass, c.riesz.cos, c.riesz.sin, o.lowpass, o.riesz.cos, o.riesz.sin)
             if phase_fused:
                 # the kernel's per-filter 6-plane layout; the shared acc is
                 # fed to both filters, which accumulate it identically
@@ -196,7 +235,7 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
             amplify_kernel = kernel_tails.riesz_amplify_mxu
         elif kernel_tail and tail == "pallas":
             amplify_kernel = kernel_tails.riesz_amplify_fused
-        pr = phase_difference_and_amplitude(c, old[lvl],
+        pr = phase_difference_and_amplitude(c, level_f32(old[lvl]),
                                             compute_blur=amplify_kernel is None)
         # both filters read the same shared accumulator
         lo_res, phase, lo_r0, lo_r1 = riesz_df2_step(
@@ -208,15 +247,22 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
         new_hi.append(RegPair(hi_r0, hi_r1))
         if amplify_kernel is not None:
             change = hi_res - lo_res
-            lowpasses.append(amplify_kernel(
-                pr.amplitude, change.cos, change.sin, c.lowpass, c.riesz.cos,
-                c.riesz.sin, dyn.amplification, dyn.threshold))
+            planes = (pr.amplitude, change.cos, change.sin, c.lowpass, c.riesz.cos,
+                      c.riesz.sin)
+            fast = {}
+            if tail == "mxu" and min(c.lowpass.shape) >= MIN_MXU_SIDE:
+                tio = resolve_dtype(tail_io)
+                planes = (*(x.to(tio) for x in planes[:3]), stored.lowpass,
+                          stored.riesz.cos, stored.riesz.sin)
+                fast = {"bf16": mxu_dtype == "bf16"}
+            lowpasses.append(amplify_kernel(*planes, dyn.amplification, dyn.threshold,
+                                            **fast))
             continue
         normalized = normalize_phase(hi_res, lo_res, pr.amplitude, pr.amplitude_blurred)
         lowpasses.append(amplify_level(c, normalized, dyn.amplification, dyn.threshold))
     lowpasses.append(cur[levels - 1].lowpass)  # untouched residual octave
 
-    magnified = collapse_riesz_pyramid(lowpasses)
+    magnified = collapse_riesz_pyramid(lowpasses, mxu_dtype=mxu_dtype)
     merged = torch.stack([magnified, lab[1], lab[2]])
     out_u8 = to_u8(lab_to_bgr(merged), 255.0, 1.0 / 255.0)
 
@@ -225,23 +271,33 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
     if first or dyn.force_init:
         out_u8 = frame_u8.clone()
 
-    # "*st.old = *st.cur": the prior pyramid becomes this frame's.
-    new_state = RieszState(state.count + 1, tuple(cur), tuple(new_acc),
+    # "*st.old = *st.cur": the prior pyramid becomes this frame's, in the
+    # carried state's dtypes (bf16 band levels under pyr_io).
+    new_old = tuple(
+        RieszLevel(n.lowpass.to(o.lowpass.dtype),
+                   CompExp(n.riesz.cos.to(o.riesz.cos.dtype), n.riesz.sin.to(o.riesz.sin.dtype)))
+        for n, o in zip(cur, state.old))
+    new_state = RieszState(state.count + 1, new_old, tuple(new_acc),
                            tuple(new_lo), tuple(new_hi))
     return new_state, out_u8
 
 
 def process_clip(frames_u8: torch.Tensor, dyn: RieszDynParams, *, levels: int,
-                 state: Optional[RieszState] = None, device=None
+                 state: Optional[RieszState] = None, device=None, tail: str = "jnp",
+                 phase_fused: bool = False, build: str = "auto", mxu_dtype: str = "f32",
+                 pyr_io: str = "f32", tail_io: str = "f32"
                  ) -> Tuple[RieszState, torch.Tensor]:
-    """[T, 3, H, W] uint8 through ``step`` in order; returns (state, outs).
-    Without ``state`` it starts from zero on ``device`` (CUDA by default)."""
+    """[T, 3, H, W] uint8 through ``step`` in order, under the given flags;
+    returns (state, outs). Without ``state`` it starts from zero on
+    ``device`` (CUDA by default), with ``pyr_io`` band levels."""
     t, _, h, w = frames_u8.shape
     if state is None:
-        state = init_state(h, w, levels, device=device)
+        state = init_state(h, w, levels, device=device, pyr_io=pyr_io)
     frames_u8 = frames_u8.to(state.old[0].lowpass.device)
     outs = []
     for i in range(t):
-        state, out = step(state, frames_u8[i], dyn, levels=levels)
+        state, out = step(state, frames_u8[i], dyn, levels=levels, tail=tail,
+                          phase_fused=phase_fused, build=build, mxu_dtype=mxu_dtype,
+                          pyr_io=pyr_io, tail_io=tail_io)
         outs.append(out)
     return state, torch.stack(outs)

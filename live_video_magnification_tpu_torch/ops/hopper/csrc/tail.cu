@@ -13,12 +13,18 @@
 //                      Element-wise: 18 planes in, 15 out.
 //   lvmt_amplify13  <- ops/pallas/riesz_amplify.py::riesz_amplify_fused and
 //                      ops/pallas/riesz_amplify_mxu.py::riesz_amplify_mxu
-//                      amplify13_kernel<PREWEIGHTED>: the two TPU kernels
-//                      compute one function (the MXU form exists only for the
-//                      TPU's matrix unit), so one kernel serves both.
-//                      ab = g13(amp), n = g13(w)/ab with w = change*amp (or
-//                      the preweighted planes), then the phase rotation.
-//                      6 planes in, 1 out.
+//                      amplify13_kernel<PREWEIGHTED, TB, TE, BF16>: the two
+//                      TPU kernels compute one function (the MXU form exists
+//                      only for the TPU's matrix unit), so one kernel serves
+//                      both. ab = g13(amp), n = g13(w)/ab with w = change*amp
+//                      (or the preweighted planes), then the phase rotation.
+//                      6 planes in, 1 out. riesz_amplify_mxu's fast arms:
+//                      amp/change planes of type TB and lowpass/Riesz planes
+//                      of type TE (float or __nv_bfloat16, read as f32), and
+//                      BF16, the bf16 blur operands of its default vertical
+//                      matmul: the strip values (amp, w) and the taps rounded
+//                      to bf16, the vertical (H-axis) pass first, its f32
+//                      sums rounded to bf16 for the horizontal pass.
 //   lvmt_level_tail <- ops/pallas/riesz_level_mxu.py::riesz_level_mxu
 //                      level_tail_kernel: the phase front and the shared-
 //                      accumulator DF-II recomputed on the tile plus a 6-px
@@ -44,7 +50,8 @@
 // Arithmetic: every product, sum, quotient and square root is rounded to f32
 // on its own (__fmul_rn, __fadd_rn, __fsub_rn, __fdiv_rn, __fsqrt_rn: no
 // contraction into FMAs), in the order of the plain PyTorch versions
-// (ops/hopper/tail.py): W-axis taps first, then H-axis taps, in tap order.
+// (ops/hopper/tail.py): W-axis taps first, then H-axis taps, in tap order
+// (H-axis first in the BF16 arm, as the reference kernel).
 // The arccos of the phase is the reference kernels' polynomial (Abramowitz &
 // Stegun 4.4.45), not acosf. sinf and cosf are the library's; they are the
 // only operations that may round otherwise than the plain version on the CPU.
@@ -54,6 +61,7 @@
 // pointers copied into by-value kernel parameters, the stream as void*. Each
 // function returns cudaGetLastError() of its launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstring>
@@ -88,13 +96,14 @@ struct PhasePlanes {
   float* out[15];
 };
 
+// amp, cc, cs of the kernel's TB, lp, rr, ri of its TE
 struct AmplifyPlanes {
-  const float* amp;
-  const float* cc;
-  const float* cs;
-  const float* lp;
-  const float* rr;
-  const float* ri;
+  const void* amp;
+  const void* cc;
+  const void* cs;
+  const void* lp;
+  const void* rr;
+  const void* ri;
   float* out;
 };
 
@@ -111,6 +120,13 @@ __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b);
 __device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ float madd(float acc, float v, float k) { return add(acc, mul(v, k)); }
 __device__ __forceinline__ float nan_to_zero(float x) { return isnan(x) ? 0.f : x; }
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float load(const float* p, size_t i) { return p[i]; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p, size_t i) {
+  return __bfloat162float(p[i]);
+}
 
 // Reflect-101 for any p, periodic with period 2(n-1) as the plain version's
 // index rule (ops/conv.py::reflect_index), so narrow sides agree with it.
@@ -228,11 +244,16 @@ phase_df2_kernel(PhasePlanes p, long long n, Coeffs k, int rebuild) {
 // The three haloed planes (amp, wc, ws) of one tile, in shared memory.
 using Tile3 = float[3][SH][SW];
 
-// W-axis 13-tap pass of all three planes, written back in place: row r of
-// each plane ends up holding, in its first TW columns, the row sums of the
-// tile's TW output columns.
-__device__ __forceinline__ void w_pass_in_place(Tile3& buf, const Taps13& g) {
-  constexpr int N = SH * TW;
+// The first 13-tap pass of all three planes, written back in place. W-axis
+// (VERT false): row r of each plane ends up holding, in its first TW
+// columns, the row sums of the tile's TW output columns. H-axis (VERT, the
+// bf16 arm): rows 0..TH-1 hold the column sums of the tile's TH output rows
+// for every haloed column, each rounded to bf16.
+template <bool VERT>
+__device__ __forceinline__ void first_pass_in_place(Tile3& buf, const Taps13& g) {
+  constexpr int ROWS = VERT ? TH : SH;
+  constexpr int COLS = VERT ? SW : TW;
+  constexpr int N = ROWS * COLS;
   constexpr int PER = (N + NT - 1) / NT;
 #pragma unroll 1
   for (int k = 0; k < 3; ++k) {
@@ -241,12 +262,14 @@ __device__ __forceinline__ void w_pass_in_place(Tile3& buf, const Taps13& g) {
     for (int j = 0; j < PER; ++j) {
       const int idx = threadIdx.x + j * NT;
       if (idx < N) {
-        const int r = idx / TW;
-        const int c = idx - r * TW;
+        const int r = idx / COLS;
+        const int c = idx - r * COLS;
         float acc = mul(buf[k][r][c], g.k[0]);
 #pragma unroll
-        for (int t = 1; t < 13; ++t) acc = madd(acc, buf[k][r][c + t], g.k[t]);
-        v[j] = acc;
+        for (int t = 1; t < 13; ++t) {
+          acc = madd(acc, VERT ? buf[k][r + t][c] : buf[k][r][c + t], g.k[t]);
+        }
+        v[j] = VERT ? round_bf16(acc) : acc;
       }
     }
     __syncthreads();
@@ -254,20 +277,23 @@ __device__ __forceinline__ void w_pass_in_place(Tile3& buf, const Taps13& g) {
     for (int j = 0; j < PER; ++j) {
       const int idx = threadIdx.x + j * NT;
       if (idx < N) {
-        const int r = idx / TW;
-        buf[k][r][idx - r * TW] = v[j];
+        const int r = idx / COLS;
+        buf[k][r][idx - r * COLS] = v[j];
       }
     }
     __syncthreads();
   }
 }
 
-// H-axis pass of the row sums and the amplify rotation (RieszPyramid.cpp:
-// 114-144) for every output of the tile; one plane is written.
-__device__ __forceinline__ void h_pass_and_amplify(const Tile3& buf, const Taps13& g, int y0,
-                                                   int x0, int h, int w, const float* lp,
-                                                   const float* rr, const float* ri,
-                                                   float alpha, float threshold, float* out) {
+// The second pass of the first pass's sums (H-axis, or W-axis after a
+// VERT_FIRST pass) and the amplify rotation (RieszPyramid.cpp:114-144) for
+// every output of the tile; one plane is written.
+template <bool VERT_FIRST, typename TE>
+__device__ __forceinline__ void second_pass_and_amplify(const Tile3& buf, const Taps13& g,
+                                                        int y0, int x0, int h, int w,
+                                                        const TE* lp, const TE* rr,
+                                                        const TE* ri, float alpha,
+                                                        float threshold, float* out) {
   for (int idx = threadIdx.x; idx < TH * TW; idx += NT) {
     const int r = idx / TW;
     const int c = idx - r * TW;
@@ -279,9 +305,11 @@ __device__ __forceinline__ void h_pass_and_amplify(const Tile3& buf, const Taps1
     float bs = mul(buf[2][r][c], g.k[0]);
 #pragma unroll
     for (int t = 1; t < 13; ++t) {
-      ab = madd(ab, buf[0][r + t][c], g.k[t]);
-      bc = madd(bc, buf[1][r + t][c], g.k[t]);
-      bs = madd(bs, buf[2][r + t][c], g.k[t]);
+      const int rt = VERT_FIRST ? r : r + t;
+      const int ct = VERT_FIRST ? c + t : c;
+      ab = madd(ab, buf[0][rt][ct], g.k[t]);
+      bc = madd(bc, buf[1][rt][ct], g.k[t]);
+      bs = madd(bs, buf[2][rt][ct], g.k[t]);
     }
     const float nc = quo(bc, ab);
     const float ns = quo(bs, ab);
@@ -289,35 +317,40 @@ __device__ __forceinline__ void h_pass_and_amplify(const Tile3& buf, const Taps1
     float mag2 = mul(mag, alpha);
     mag2 = mag2 > threshold ? threshold : mag2;  // THRESH_TRUNC, NaN kept
     const size_t o = (size_t)y * w + x;
-    const float pair = nan_to_zero(quo(add(mul(rr[o], nc), mul(ri[o], ns)), mag));
-    out[o] = sub(mul(lp[o], cosf(mag2)), mul(pair, sinf(mag2)));
+    const float pair = nan_to_zero(quo(add(mul(load(rr, o), nc), mul(load(ri, o), ns)), mag));
+    out[o] = sub(mul(load(lp, o), cosf(mag2)), mul(pair, sinf(mag2)));
   }
 }
 
-template <bool PREWEIGHTED>
+template <bool PREWEIGHTED, typename TB, typename TE, bool BF16>
 __global__ void __launch_bounds__(NT)
 amplify13_kernel(AmplifyPlanes p, int h, int w, float alpha, float threshold, Taps13 g) {
   __shared__ Tile3 buf;
+  const TB* amp = static_cast<const TB*>(p.amp);
+  const TB* ccp = static_cast<const TB*>(p.cc);
+  const TB* csp = static_cast<const TB*>(p.cs);
   const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
   for (int idx = threadIdx.x; idx < SH * SW; idx += NT) {
     const int r = idx / SW;
     const int c = idx - r * SW;
     const size_t s = (size_t)reflect101(y0 - HALO + r, h) * w + reflect101(x0 - HALO + c, w);
-    const float a = p.amp[s];
-    float cc = p.cc[s];
-    float cs = p.cs[s];
+    const float a = load(amp, s);
+    float cc = load(ccp, s);
+    float cs = load(csp, s);
     if (!PREWEIGHTED) {
       cc = mul(cc, a);
       cs = mul(cs, a);
     }
-    buf[0][r][c] = a;
-    buf[1][r][c] = cc;
-    buf[2][r][c] = cs;
+    buf[0][r][c] = BF16 ? round_bf16(a) : a;
+    buf[1][r][c] = BF16 ? round_bf16(cc) : cc;
+    buf[2][r][c] = BF16 ? round_bf16(cs) : cs;
   }
   __syncthreads();
-  w_pass_in_place(buf, g);
-  h_pass_and_amplify(buf, g, y0, x0, h, w, p.lp, p.rr, p.ri, alpha, threshold, p.out);
+  first_pass_in_place<BF16>(buf, g);
+  second_pass_and_amplify<BF16>(buf, g, y0, x0, h, w, static_cast<const TE*>(p.lp),
+                                static_cast<const TE*>(p.rr), static_cast<const TE*>(p.ri),
+                                alpha, threshold, p.out);
 }
 
 __global__ void __launch_bounds__(NT)
@@ -363,9 +396,9 @@ level_tail_kernel(LevelPlanes p, int h, int w, Coeffs k, int rebuild, float alph
     }
   }
   __syncthreads();
-  w_pass_in_place(buf, g);
-  h_pass_and_amplify(buf, g, y0, x0, h, w, p.in[0], p.in[1], p.in[2], alpha, threshold,
-                     p.out[0]);
+  first_pass_in_place<false>(buf, g);
+  second_pass_and_amplify<false>(buf, g, y0, x0, h, w, p.in[0], p.in[1], p.in[2], alpha,
+                                 threshold, p.out[0]);
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -383,6 +416,40 @@ Taps13 taps13(const float* t) {
   Taps13 g;
   std::memcpy(g.k, t, sizeof g.k);
   return g;
+}
+
+// The sixteen amplify13 instantiations, picked from the runtime flags.
+struct AmplifyLaunch {
+  dim3 grid;
+  cudaStream_t stream;
+  AmplifyPlanes p;
+  int h, w;
+  float alpha, threshold;
+  Taps13 g;
+};
+
+template <bool PW, typename TB, typename TE, bool BF16>
+void amplify_go(const AmplifyLaunch& L) {
+  amplify13_kernel<PW, TB, TE, BF16><<<L.grid, NT, 0, L.stream>>>(L.p, L.h, L.w, L.alpha,
+                                                                 L.threshold, L.g);
+}
+
+template <bool PW, typename TB, typename TE>
+void amplify_bf16(const AmplifyLaunch& L, bool bf16) {
+  if (bf16) amplify_go<PW, TB, TE, true>(L);
+  else amplify_go<PW, TB, TE, false>(L);
+}
+
+template <bool PW, typename TB>
+void amplify_te(const AmplifyLaunch& L, bool ew_bf16, bool bf16) {
+  if (ew_bf16) amplify_bf16<PW, TB, __nv_bfloat16>(L, bf16);
+  else amplify_bf16<PW, TB, float>(L, bf16);
+}
+
+template <bool PW>
+void amplify_tb(const AmplifyLaunch& L, bool blur_bf16, bool ew_bf16, bool bf16) {
+  if (blur_bf16) amplify_te<PW, __nv_bfloat16>(L, ew_bf16, bf16);
+  else amplify_te<PW, float>(L, ew_bf16, bf16);
 }
 
 }  // namespace
@@ -403,24 +470,29 @@ int lvmt_phase_df2(const void* const* planes, long long n, const float* coeff, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// planes: amp, cc, cs, lp, rr, ri, out, each h x w floats; taps: 13 floats.
+// planes: amp, cc, cs (bf16 when blur_bf16, else float), lp, rr, ri (bf16
+// when ew_bf16), out (float), each h x w; taps: 13 floats (bf16-rounded
+// under bf16, the bf16 operand arm).
 int lvmt_amplify13(const void* const* planes, int h, int w, float alpha, float threshold,
-                   int preweighted, const float* taps, void* stream) {
-  AmplifyPlanes p;
-  p.amp = static_cast<const float*>(planes[0]);
-  p.cc = static_cast<const float*>(planes[1]);
-  p.cs = static_cast<const float*>(planes[2]);
-  p.lp = static_cast<const float*>(planes[3]);
-  p.rr = static_cast<const float*>(planes[4]);
-  p.ri = static_cast<const float*>(planes[5]);
-  p.out = static_cast<float*>(const_cast<void*>(planes[6]));
-  const dim3 grid(ceil_div(w, TW), ceil_div(h, TH));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (preweighted) {
-    amplify13_kernel<true><<<grid, NT, 0, s>>>(p, h, w, alpha, threshold, taps13(taps));
-  } else {
-    amplify13_kernel<false><<<grid, NT, 0, s>>>(p, h, w, alpha, threshold, taps13(taps));
-  }
+                   int preweighted, int blur_bf16, int ew_bf16, int bf16, const float* taps,
+                   void* stream) {
+  AmplifyLaunch L;
+  L.p.amp = planes[0];
+  L.p.cc = planes[1];
+  L.p.cs = planes[2];
+  L.p.lp = planes[3];
+  L.p.rr = planes[4];
+  L.p.ri = planes[5];
+  L.p.out = static_cast<float*>(const_cast<void*>(planes[6]));
+  L.grid = dim3(ceil_div(w, TW), ceil_div(h, TH));
+  L.stream = static_cast<cudaStream_t>(stream);
+  L.h = h;
+  L.w = w;
+  L.alpha = alpha;
+  L.threshold = threshold;
+  L.g = taps13(taps);
+  if (preweighted) amplify_tb<true>(L, blur_bf16, ew_bf16, bf16);
+  else amplify_tb<false>(L, blur_bf16, ew_bf16, bf16);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,28 +1,46 @@
-"""The Riesz pyramid's four stencils: CUDA kernels for Hopper and their plain
+"""The Riesz pyramid's stencils: CUDA kernels for Hopper and their plain
 PyTorch versions.
 
-Each public function takes [H, W] float32 contiguous tensors. On a CUDA
-tensor it launches its kernel from ``csrc/stencils.cu`` on the current stream
-(or raises); on a CPU tensor it runs the plain version beside it, the
-composition of ``ops/conv.py`` functions that the kernel must equal. There is
-no switch and no fallback.
+Each public function takes [H, W] contiguous tensors. On a CUDA tensor it
+launches its kernel from ``csrc/stencils.cu`` on the current stream (or
+raises); on a CPU tensor it runs the plain version beside it, the composition
+of ``ops/conv.py`` functions that the kernel must equal. There is no switch
+and no fallback.
 
-================  =========================================  ======================
-function          replaces (reference package)               bound at 2160x3840
-================  =========================================  ======================
-conv9             ops/pallas/conv9_mxu.py::conv9_mxu         bytes ~ operations
-band5             ops/pallas/conv9_mxu.py::band5_mxu         bytes
-lp9_decimate      ops/pallas/conv9_mxu.py::lp9_decimate_mxu  bytes
-lp9_inject        ops/pallas/conv9_mxu.py::lp9_inject_mxu    bytes
-================  =========================================  ======================
+==================  ==================================================  =========
+function            replaces (reference package)                        bound
+==================  ==================================================  =========
+conv9               ops/pallas/conv9_mxu.py::conv9_mxu                  bytes
+band5               ops/pallas/conv9_mxu.py::band5_mxu                  bytes
+lp9_decimate        ops/pallas/conv9_mxu.py::lp9_decimate_mxu           bytes
+lp9_inject          ops/pallas/conv9_mxu.py::lp9_inject_mxu             bytes
+riesz_build_level   ops/pallas/riesz_build.py::riesz_build_level_fused  bytes
+==================  ==================================================  =========
+
+The four MXU stencils take the reference's ``bf16`` operand arm: with
+``bf16=True`` every pixel and every tap is rounded to bfloat16 (nearest even)
+and the exact products are summed in f32, which is what the TPU kernels'
+``dot(a.astype(bf16), b.astype(bf16), preferred_element_type=f32)`` computes.
+band5's vertical taps are the exception: the TPU kernel sums them on the VPU
+in f32 and rounds only that sum (its matmul is by an identity shift), so the
+bf16 arm of ``i`` is the f32 sum rounded to bfloat16. conv9 and band5 also
+take ``out_dtype="bf16"`` (the f32 sum rounded on the store), and band5 a
+bfloat16 input plane; everything else is float32, as in the reference.
+
+riesz_build_level is one pass over an octave: hp = octave (*) HP9, its Riesz
+pair, and the decimated 2*LP9 octave. It computes what conv9, band5 and
+lp9_decimate compute, in the same order, so it equals their composition bit
+for bit (hp's apron is taken by mirroring hp's index, as band5 reads it, not
+from the padded octave as the TPU kernel does). Its operands are always f32.
 
 The design notes (tiles, reflect-101 by index mirroring, the exact tap order)
 are at the top of the CUDA source. Unlike the TPU kernels, these take any side
-of at least 5 (reflect-101 with a 4-px reach), odd sides included, so the
-port needs no size gate: every pyramid level runs its kernel.
+of at least 5 (reflect-101 with a 4-px reach), odd sides included;
+riesz_build_level takes sides of at least 16, the reference's MIN_FUSED_DIM.
 
-``LAUNCHES`` counts the kernel launches of each function; a run that resets
-it can show which kernels its main path went through.
+``LAUNCHES`` counts the kernel launches of each function with f32 operands,
+``LAUNCHES_BF16`` those of the bf16 operand arms; a run that resets them can
+show which kernels, and which arms, its main path went through.
 """
 
 from __future__ import annotations
@@ -40,30 +58,83 @@ from live_video_magnification_tpu_torch.ops.conv import (
     correlate_rows,
 )
 from live_video_magnification_tpu_torch.ops.hopper._build import launch, load_library
+from live_video_magnification_tpu_torch.ops.kernels import (
+    LOWPASS_2X,
+    RIESZ_BAND_KERNEL,
+    RIESZ_HIGHPASS_9x9,
+)
 from live_video_magnification_tpu_torch.ops.resize import resize_nearest_even_inject
 
-LAUNCHES = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0}
+LAUNCHES = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0,
+            "riesz_build_level": 0}
+LAUNCHES_BF16 = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0}
 
 MIN_SIDE = 5
+MIN_FUSED_SIDE = 16  # riesz_build_level, the reference's MIN_FUSED_DIM
+
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (nearest even) and back to float32."""
+    return x.to(torch.bfloat16).float()
+
+
+def round_taps_bf16(k) -> np.ndarray:
+    """f32 taps rounded to bfloat16, as float32 host values."""
+    t = torch.from_numpy(np.ascontiguousarray(np.asarray(k, dtype=np.float32)))
+    return round_bf16(t).numpy()
+
+
+def resolve_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a storage name ("f32" or "bf16"); raises otherwise."""
+    if name not in DTYPES:
+        raise ValueError(f"unknown dtype {name!r}: expected one of {', '.join(DTYPES)}")
+    return DTYPES[name]
 
 
 # ---------------------------------------------------------------- plain versions
 
 
-def conv9_plain(x: torch.Tensor, k9) -> torch.Tensor:
-    return correlate2d(x, k9)
+def conv9_plain(x: torch.Tensor, k9, bf16: bool = False, out_dtype: str = "f32") -> torch.Tensor:
+    if bf16:
+        x, k9 = round_bf16(x), round_taps_bf16(k9)
+    return correlate2d(x, k9).to(resolve_dtype(out_dtype))
 
 
-def band5_plain(hp: torch.Tensor, taps) -> Tuple[torch.Tensor, torch.Tensor]:
-    return correlate_rows(hp, taps), correlate_cols(hp, taps)
+def band5_plain(hp: torch.Tensor, taps, bf16: bool = False,
+                out_dtype: str = "f32") -> Tuple[torch.Tensor, torch.Tensor]:
+    hp = hp.float()
+    if bf16:
+        r = correlate_rows(round_bf16(hp), round_taps_bf16(taps))
+        i = round_bf16(correlate_cols(hp, taps))
+    else:
+        r, i = correlate_rows(hp, taps), correlate_cols(hp, taps)
+    od = resolve_dtype(out_dtype)
+    return r.to(od), i.to(od)
 
 
-def lp9_decimate_plain(x: torch.Tensor, k9) -> torch.Tensor:
+def lp9_decimate_plain(x: torch.Tensor, k9, bf16: bool = False) -> torch.Tensor:
+    if bf16:
+        x, k9 = round_bf16(x), round_taps_bf16(k9)
     return correlate2d(x, k9)[::2, ::2].contiguous()
 
 
-def lp9_inject_plain(small: torch.Tensor, k9, out_hw: Tuple[int, int]) -> torch.Tensor:
+def lp9_inject_plain(small: torch.Tensor, k9, out_hw: Tuple[int, int],
+                     bf16: bool = False) -> torch.Tensor:
+    if bf16:
+        small, k9 = round_bf16(small), round_taps_bf16(k9)
     return correlate2d(resize_nearest_even_inject(small, out_hw), k9)
+
+
+def riesz_build_level_plain(octave: torch.Tensor, out_dtype: str = "f32"):
+    """(hp, r, i, decimated octave): conv9, band5 on its f32 result, and
+    lp9_decimate; hp, r and i rounded to ``out_dtype`` last."""
+    hp = conv9_plain(octave, RIESZ_HIGHPASS_9x9)
+    r, i = band5_plain(hp, RIESZ_BAND_KERNEL)
+    sub = lp9_decimate_plain(octave, LOWPASS_2X)
+    od = resolve_dtype(out_dtype)
+    return hp.to(od), r.to(od), i.to(od), sub
 
 
 # ---------------------------------------------------------------- launching
@@ -74,10 +145,11 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("stencils")
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        "lvmt_conv9": [p, p, i, i, p, p],
-        "lvmt_lp9_decimate": [p, p, i, i, p, p],
-        "lvmt_band5": [p, p, p, i, i, p, p],
-        "lvmt_lp9_inject": [p, p, i, i, i, i, p, p],
+        "lvmt_conv9": [p, p, i, i, p, i, i, p],
+        "lvmt_lp9_decimate": [p, p, i, i, p, i, p],
+        "lvmt_band5": [p, p, p, i, i, p, p, i, i, i, p],
+        "lvmt_lp9_inject": [p, p, i, i, i, i, p, i, p],
+        "lvmt_riesz_build_level": [p, p, p, p, p, i, i, p, p, p, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -86,9 +158,10 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_plane(x: torch.Tensor, what: str) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"{what}: expected float32, got {x.dtype}")
+def _check_plane(x: torch.Tensor, what: str, dtypes=(torch.float32,)) -> None:
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{what}: expected {names}, got {x.dtype}")
     if x.ndim != 2:
         raise ValueError(f"{what}: expected an [H, W] plane, got shape {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -109,61 +182,99 @@ def _taps(k, n: int) -> np.ndarray:
     return t
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
+def _launch(name: str, bf16: bool, device: torch.device, *args) -> None:
     launch(getattr(_lib(), "lvmt_" + name), name, device, *args)
-    LAUNCHES[name] += 1
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)[name] += 1
 
 
-def conv9(x: torch.Tensor, k9) -> torch.Tensor:
-    """correlate2d(x, k9), 9x9, reflect-101: [H, W] -> [H, W]."""
+def conv9(x: torch.Tensor, k9, *, bf16: bool = False, out_dtype: str = "f32") -> torch.Tensor:
+    """correlate2d(x, k9), 9x9, reflect-101: [H, W] f32 -> [H, W] ``out_dtype``."""
     _check_plane(x, "conv9")
+    od = resolve_dtype(out_dtype)
     taps = _taps(k9, 81)
+    bf16 = bool(bf16)
     if x.device.type == "cpu":
-        return conv9_plain(x, taps.reshape(9, 9))
-    out = torch.empty_like(x)
+        return conv9_plain(x, taps.reshape(9, 9), bf16, out_dtype)
+    ktaps = round_taps_bf16(taps) if bf16 else taps
+    out = torch.empty(x.shape, dtype=od, device=x.device)
     h, w = x.shape
-    _launch("conv9", x.device, x.data_ptr(), out.data_ptr(), h, w, taps.ctypes.data)
+    _launch("conv9", bf16, x.device, x.data_ptr(), out.data_ptr(), h, w, ktaps.ctypes.data,
+            int(bf16), int(od == torch.bfloat16))
     return out
 
 
-def band5(hp: torch.Tensor, taps) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(correlate_rows(hp, taps), correlate_cols(hp, taps)), 5 taps, reflect-101."""
-    _check_plane(hp, "band5")
+def band5(hp: torch.Tensor, taps, *, bf16: bool = False,
+          out_dtype: str = "f32") -> Tuple[torch.Tensor, torch.Tensor]:
+    """(correlate_rows(hp, taps), correlate_cols(hp, taps)), 5 taps, reflect-101;
+    hp float32 or bfloat16."""
+    _check_plane(hp, "band5", (torch.float32, torch.bfloat16))
+    od = resolve_dtype(out_dtype)
     t5 = _taps(taps, 5)
+    bf16 = bool(bf16)
     if hp.device.type == "cpu":
-        return band5_plain(hp, t5)
-    r = torch.empty_like(hp)
-    i = torch.empty_like(hp)
+        return band5_plain(hp, t5, bf16, out_dtype)
+    r_taps = round_taps_bf16(t5) if bf16 else t5
+    r = torch.empty(hp.shape, dtype=od, device=hp.device)
+    i = torch.empty(hp.shape, dtype=od, device=hp.device)
     h, w = hp.shape
-    _launch("band5", hp.device, hp.data_ptr(), r.data_ptr(), i.data_ptr(), h, w,
-            t5.ctypes.data)
+    _launch("band5", bf16, hp.device, hp.data_ptr(), r.data_ptr(), i.data_ptr(), h, w,
+            r_taps.ctypes.data, t5.ctypes.data, int(hp.dtype == torch.bfloat16),
+            int(od == torch.bfloat16), int(bf16))
     return r, i
 
 
-def lp9_decimate(x: torch.Tensor, k9) -> torch.Tensor:
-    """correlate2d(x, k9)[::2, ::2]: [H, W] -> [ceil(H/2), ceil(W/2)]."""
+def lp9_decimate(x: torch.Tensor, k9, *, bf16: bool = False) -> torch.Tensor:
+    """correlate2d(x, k9)[::2, ::2]: [H, W] -> [ceil(H/2), ceil(W/2)], f32."""
     _check_plane(x, "lp9_decimate")
     taps = _taps(k9, 81)
+    bf16 = bool(bf16)
     if x.device.type == "cpu":
-        return lp9_decimate_plain(x, taps.reshape(9, 9))
+        return lp9_decimate_plain(x, taps.reshape(9, 9), bf16)
+    ktaps = round_taps_bf16(taps) if bf16 else taps
     h, w = x.shape
     out = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device)
-    _launch("lp9_decimate", x.device, x.data_ptr(), out.data_ptr(), h, w, taps.ctypes.data)
+    _launch("lp9_decimate", bf16, x.device, x.data_ptr(), out.data_ptr(), h, w,
+            ktaps.ctypes.data, int(bf16))
     return out
 
 
-def lp9_inject(small: torch.Tensor, k9, out_hw: Tuple[int, int]) -> torch.Tensor:
+def lp9_inject(small: torch.Tensor, k9, out_hw: Tuple[int, int], *,
+               bf16: bool = False) -> torch.Tensor:
     """correlate2d(resize_nearest_even_inject(small, out_hw), k9): [h, w] ->
-    out_hw, for any out_hw with ceil(out/2) <= the small side."""
+    out_hw, f32, for any out_hw with ceil(out/2) <= the small side."""
     _check_plane(small, "lp9_inject")
     taps = _taps(k9, 81)
+    bf16 = bool(bf16)
     h, w = (int(v) for v in out_hw)
     sh, sw = small.shape
     if min(h, w) < MIN_SIDE or (h + 1) // 2 > sh or (w + 1) // 2 > sw:
         raise ValueError(f"lp9_inject: target {out_hw} does not fit source {(sh, sw)}")
     if small.device.type == "cpu":
-        return lp9_inject_plain(small, taps.reshape(9, 9), (h, w))
+        return lp9_inject_plain(small, taps.reshape(9, 9), (h, w), bf16)
+    ktaps = round_taps_bf16(taps) if bf16 else taps
     out = torch.empty((h, w), dtype=small.dtype, device=small.device)
-    _launch("lp9_inject", small.device, small.data_ptr(), out.data_ptr(), sh, sw, h, w,
-            taps.ctypes.data)
+    _launch("lp9_inject", bf16, small.device, small.data_ptr(), out.data_ptr(), sh, sw, h, w,
+            ktaps.ctypes.data, int(bf16))
     return out
+
+
+def riesz_build_level(octave: torch.Tensor, *, out_dtype: str = "f32"):
+    """One band level of the pyramid in one pass: (hp, r, i, decimated octave)
+    as the reference's riesz_build_level_fused returns them. hp, r and i are
+    [H, W] ``out_dtype``, the octave [ceil(H/2), ceil(W/2)] f32. Both sides of
+    the f32 input must be at least 16."""
+    _check_plane(octave, "riesz_build_level")
+    od = resolve_dtype(out_dtype)
+    if min(octave.shape) < MIN_FUSED_SIDE:
+        raise ValueError(f"riesz_build_level: sides {tuple(octave.shape)} below "
+                         f"{MIN_FUSED_SIDE}")
+    if octave.device.type == "cpu":
+        return riesz_build_level_plain(octave, out_dtype)
+    h, w = octave.shape
+    hp, r, i = (torch.empty((h, w), dtype=od, device=octave.device) for _ in range(3))
+    sub = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=torch.float32, device=octave.device)
+    hp9, t5, lp9 = _taps(RIESZ_HIGHPASS_9x9, 81), _taps(RIESZ_BAND_KERNEL, 5), _taps(LOWPASS_2X, 81)
+    _launch("riesz_build_level", False, octave.device, octave.data_ptr(), hp.data_ptr(),
+            r.data_ptr(), i.data_ptr(), sub.data_ptr(), h, w, hp9.ctypes.data,
+            t5.ctypes.data, lp9.ctypes.data, int(od == torch.bfloat16))
+    return hp, r, i, sub

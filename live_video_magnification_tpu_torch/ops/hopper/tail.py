@@ -8,6 +8,16 @@ CUDA tensor it launches its kernel from ``csrc/tail.cu`` on the current
 stream (or raises); on a CPU tensor it runs the plain version beside it.
 There is no switch and no fallback.
 
+riesz_amplify_mxu also takes the reference's fast arms: its amplitude and
+change planes may be bfloat16 (``LVMT_TAIL_IO``), its lowpass and Riesz pair
+too (``LVMT_PYR_IO``), each group of three of one dtype; and ``bf16=True``
+(``LVMT_MXU_DTYPE=bf16``, which the reference reads inside the kernel) runs
+its blurs on bf16 operands as the TPU kernel's default vertical matmul does:
+the vertical pass on bf16 taps and bf16 strip values (the amplitude, or the
+f32 product change * amplitude), summed in f32; that sum and the taps
+rounded to bf16 for the horizontal pass. The f32 arm keeps the W-axis pass
+first.
+
   * riesz_phase_df2_fused -> phase_df2_kernel, replaces
     ops/pallas/riesz_phase_fused.py::riesz_phase_df2_fused (K8);
   * riesz_amplify_fused -> amplify13_kernel, replaces
@@ -28,8 +38,9 @@ source. All four bound by bytes at every level of a 4K frame.
 16 runs its tail kernel; smaller levels take the plain tail, as the reference
 package does below its own gate. The functions themselves take any size.
 
-``LAUNCHES`` counts the kernel launches of each entry point; a run that
-resets it can show which kernels its main path went through.
+``LAUNCHES`` counts the kernel launches of each entry point with f32
+operands, ``LAUNCHES_BF16`` those of riesz_amplify_mxu's bf16 operand arm; a
+run that resets them can show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -41,7 +52,9 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from live_video_magnification_tpu_torch.ops.conv import correlate_cols, correlate_rows
 from live_video_magnification_tpu_torch.ops.hopper._build import launch, load_library
+from live_video_magnification_tpu_torch.ops.hopper.stencils import round_bf16, round_taps_bf16
 from live_video_magnification_tpu_torch.ops.kernels import AMPLITUDE_BLUR_KERNEL_1D
 from live_video_magnification_tpu_torch.ops.riesz import (
     RieszLevel,
@@ -54,10 +67,12 @@ from live_video_magnification_tpu_torch.ops.temporal import CompExp, riesz_df2_s
 
 LAUNCHES = {"riesz_phase_df2_fused": 0, "riesz_amplify_fused": 0,
             "riesz_amplify_mxu": 0, "riesz_level_mxu": 0}
+LAUNCHES_BF16 = {"riesz_amplify_mxu": 0}
 
 MIN_SIDE = 16
 
 _TAPS13 = np.ascontiguousarray(np.asarray(AMPLITUDE_BLUR_KERNEL_1D, np.float32))
+_TAPS13_BF16 = np.ascontiguousarray(round_taps_bf16(_TAPS13))
 
 
 # ---------------------------------------------------------------- plain versions
@@ -90,14 +105,27 @@ def riesz_phase_df2_fused_plain(cur_lp, cur_r, cur_i, old_lp, old_r, old_i,
     return (pr.amplitude, change.cos * pr.amplitude, change.sin * pr.amplitude, lo2, hi2)
 
 
+def _blur_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The 13x13 blur on bf16 operands, vertical pass first, each pass summed
+    in f32: the bf16 arm of riesz_amplify_mxu."""
+    vertical = correlate_cols(round_bf16(x), _TAPS13_BF16)
+    return correlate_rows(round_bf16(vertical), _TAPS13_BF16)
+
+
 def riesz_amplify_plain(amplitude, change_c, change_s, lowpass, riesz_r, riesz_i,
-                        alpha, threshold, preweighted: bool = False) -> torch.Tensor:
+                        alpha, threshold, preweighted: bool = False,
+                        bf16: bool = False) -> torch.Tensor:
     """normalize_phase + amplify_level: n = g13(change * amplitude) / g13(amplitude)
-    (g13(change) / g13(amplitude) when ``preweighted``), then the rotation."""
+    (g13(change) / g13(amplitude) when ``preweighted``), then the rotation.
+    Planes of any float dtype are computed in f32; ``bf16`` blurs on bf16
+    operands (``_blur_bf16``)."""
+    amplitude, change_c, change_s, lowpass, riesz_r, riesz_i = (
+        x.float() for x in (amplitude, change_c, change_s, lowpass, riesz_r, riesz_i))
     wc, ws = ((change_c, change_s) if preweighted
               else (change_c * amplitude, change_s * amplitude))
-    ab = amplitude_blur(amplitude)
-    normalized = CompExp(amplitude_blur(wc) / ab, amplitude_blur(ws) / ab)
+    blur = _blur_bf16 if bf16 else amplitude_blur
+    ab = blur(amplitude)
+    normalized = CompExp(blur(wc) / ab, blur(ws) / ab)
     return amplify_level(RieszLevel(lowpass, CompExp(riesz_r, riesz_i)), normalized,
                          _f32(alpha), _f32(threshold))
 
@@ -124,7 +152,7 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "lvmt_phase_df2": [p, ctypes.c_longlong, p, i, p],
-        "lvmt_amplify13": [p, i, i, f, f, i, p, p],
+        "lvmt_amplify13": [p, i, i, f, f, i, i, i, i, p, p],
         "lvmt_level_tail": [p, i, i, p, i, f, f, p, p],
     }
     for name, argtypes in signatures.items():
@@ -134,12 +162,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_planes(what: str, planes: Sequence[torch.Tensor]) -> torch.device:
-    """Every plane float32, [H, W], contiguous, of one shape on one device."""
+def _check_planes(what: str, planes: Sequence[torch.Tensor],
+                  dtypes=(torch.float32,)) -> torch.device:
+    """Every plane of a dtype in ``dtypes``, [H, W], contiguous, of one shape
+    on one device."""
     first = planes[0]
     for x in planes:
-        if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
-            raise TypeError(f"{what}: expected float32 tensors, got "
+        if not isinstance(x, torch.Tensor) or x.dtype not in dtypes:
+            names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+            raise TypeError(f"{what}: expected {names} tensors, got "
                             f"{getattr(x, 'dtype', type(x))}")
         if x.ndim != 2:
             raise ValueError(f"{what}: expected [H, W] planes, got shape {tuple(x.shape)}")
@@ -179,9 +210,9 @@ def _pointers(tensors: Sequence[torch.Tensor]):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _launch(entry: str, symbol: str, device: torch.device, *args) -> None:
+def _launch(entry: str, symbol: str, device: torch.device, *args, bf16: bool = False) -> None:
     launch(getattr(_lib(), symbol), entry, device, *args)
-    LAUNCHES[entry] += 1
+    (LAUNCHES_BF16 if bf16 else LAUNCHES)[entry] += 1
 
 
 def riesz_phase_df2_fused(cur_lp, cur_r, cur_i, old_lp, old_r, old_i,
@@ -205,16 +236,25 @@ def riesz_phase_df2_fused(cur_lp, cur_r, cur_i, old_lp, old_r, old_i,
 
 
 def _amplify(entry: str, amplitude, change_c, change_s, lowpass, riesz_r, riesz_i,
-             alpha, threshold, preweighted: bool) -> torch.Tensor:
+             alpha, threshold, preweighted: bool, bf16: bool = False,
+             dtypes=(torch.float32,)) -> torch.Tensor:
     ins = (amplitude, change_c, change_s, lowpass, riesz_r, riesz_i)
-    dev = _check_planes(entry, ins)
+    dev = _check_planes(entry, ins, dtypes)
+    for group, names in ((ins[:3], "amplitude, change_c and change_s"),
+                         (ins[3:], "lowpass, riesz_r and riesz_i")):
+        if len({x.dtype for x in group}) > 1:
+            raise TypeError(f"{entry}: {names} must be all float32 or all bfloat16, "
+                            f"got {[x.dtype for x in group]}")
+    bf16 = bool(bf16)
     if dev.type == "cpu":
-        return riesz_amplify_plain(*ins, alpha, threshold, preweighted=preweighted)
-    out = torch.empty_like(lowpass)
+        return riesz_amplify_plain(*ins, alpha, threshold, preweighted=preweighted, bf16=bf16)
+    out = torch.empty(lowpass.shape, dtype=torch.float32, device=dev)
     h, w = lowpass.shape
+    taps = _TAPS13_BF16 if bf16 else _TAPS13
     _launch(entry, "lvmt_amplify13", dev, _pointers([*ins, out]), h, w,
             _f32(alpha), _f32(threshold), int(bool(preweighted)),
-            _TAPS13.ctypes.data)
+            int(amplitude.dtype == torch.bfloat16), int(lowpass.dtype == torch.bfloat16),
+            int(bf16), taps.ctypes.data, bf16=bf16)
     return out
 
 
@@ -228,11 +268,15 @@ def riesz_amplify_fused(amplitude, change_c, change_s, lowpass, riesz_r, riesz_i
 
 
 def riesz_amplify_mxu(amplitude, change_c, change_s, lowpass, riesz_r, riesz_i,
-                      alpha, threshold, preweighted: bool = False) -> torch.Tensor:
+                      alpha, threshold, preweighted: bool = False,
+                      bf16: bool = False) -> torch.Tensor:
     """The same function as riesz_amplify_fused, the entry point of the
-    reference package's LVMT_TAIL=mxu tail. float32 inputs only."""
+    reference package's LVMT_TAIL=mxu tail, with its fast arms: float32 or
+    bfloat16 planes (one dtype for amplitude and change, one for lowpass and
+    the Riesz pair) and, with ``bf16``, bf16 blur operands. Returns f32."""
     return _amplify("riesz_amplify_mxu", amplitude, change_c, change_s, lowpass,
-                    riesz_r, riesz_i, alpha, threshold, preweighted)
+                    riesz_r, riesz_i, alpha, threshold, preweighted, bf16,
+                    (torch.float32, torch.bfloat16))
 
 
 def riesz_level_mxu(cur_lp, cur_r, cur_i, old_lp, old_r, old_i, acc, lo_regs, hi_regs,

@@ -45,6 +45,9 @@ RIESZ_HIGHPASS_9x9 = np.array(
     dtype=np.float32,
 )
 
+# The pyramid applies the low-pass as 2*LP9 (exact in f32: a power-of-two scale).
+LOWPASS_2X = 2.0 * RIESZ_LOWPASS_9x9
+
 
 def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     """cv::getGaussianKernel(ksize, sigma): normalized exp(-(i-c)^2 / (2*sigma^2))."""

@@ -4,8 +4,10 @@ The counterpart of the reference package's ``ops/riesz.py``
 (RieszPyramid.cpp):
 
   * build_riesz_pyramid: buildPyramid (:215-238). Per band level, the 9x9
-    high-pass (conv9), its Riesz pair (band5) and the decimated 2*LP9 octave
-    (lp9_decimate); the residual octave gets its pair from the plain ops;
+    high-pass, its Riesz pair and the decimated 2*LP9 octave, in one pass
+    (riesz_build_level) or three (conv9, band5, lp9_decimate) as the
+    reference's rule picks; the residual octave gets its pair from the plain
+    ops;
   * phase_difference_and_amplitude: the quaternion conjugate product, its
     log, NaN patching and the 13x13 sigma=3 amplitude blur (:81-111);
   * normalize_phase / amplify_level (:114-144), with the clamped arcCos quirk
@@ -13,12 +15,18 @@ The counterpart of the reference package's ``ops/riesz.py``
   * collapse_riesz_pyramid: zero-injected 2*LP9 upsample (lp9_inject) plus
     the finer octave's high-pass (conv9), coarsest first (:304-325).
 
-The four stencils dispatch on the tensor's device (ops/hopper/stencils.py): the
+The stencils dispatch on the tensor's device (ops/hopper/stencils.py): the
 CUDA kernel for a CUDA tensor at every level, the plain version on the CPU.
 The functions here are also the plain tail (phase front, blurs, amplify),
 which ``models/riesz.py::step`` runs by default, as the reference package
-leaves its tail to XLA; the kernel tails are in ops/hopper/tail.py. All
-planes are [H, W] f32.
+leaves its tail to XLA; the kernel tails are in ops/hopper/tail.py. Planes
+are [H, W] f32, except the band levels' planes under ``pyr_io="bf16"``.
+
+The reference's fast modes (``LVMT_MXU_DTYPE``, ``LVMT_PYR_IO``) change the
+function: bf16 operands round pixels and taps. So each bf16 arm engages only
+where the reference's MXU kernel would run (short side >= MIN_MXU_SIDE, and
+for the collapse an exact doubling of even sides); elsewhere the port
+computes the f32 function the reference computes there.
 """
 
 from __future__ import annotations
@@ -38,16 +46,28 @@ from live_video_magnification_tpu_torch.ops.hopper.stencils import (
     conv9,
     lp9_decimate,
     lp9_inject,
+    resolve_dtype,
+    riesz_build_level,
 )
 from live_video_magnification_tpu_torch.ops.kernels import (
     AMPLITUDE_BLUR_KERNEL_1D,
+    LOWPASS_2X,
     RIESZ_BAND_KERNEL,
     RIESZ_HIGHPASS_9x9,
-    RIESZ_LOWPASS_9x9,
 )
 from live_video_magnification_tpu_torch.ops.temporal import CompExp
 
-LOWPASS_2X = 2.0 * RIESZ_LOWPASS_9x9  # exact in f32
+# The reference package's size gates (conv9_mxu.py MIN_MXU_DIM, riesz_build.py
+# MIN_FUSED_DIM). Its TPU kernels need them; the port's kernels take any size
+# of at least 5 (16 for riesz_build_level). Here they decide what the
+# reference computes at a level: where its bf16 operands apply (>= 96) and
+# which levels its default build fuses (16 to 95).
+MIN_MXU_SIDE = 96
+MIN_FUSED_SIDE = 16
+
+# Values of the reference's LVMT_BUILD and LVMT_MXU_DTYPE that the port takes.
+BUILDS = ("auto", "fused")
+MXU_DTYPES = ("f32", "bf16", "hybrid", "hybrid-band")
 
 
 class RieszLevel(NamedTuple):
@@ -67,18 +87,81 @@ def riesz_level_sizes(h: int, w: int, levels: int) -> List[Tuple[int, int]]:
     return sizes
 
 
-def build_riesz_pyramid(frame: torch.Tensor, levels: int) -> List[RieszLevel]:
-    """buildPyramid (:215-238): levels-1 band levels + the untouched final octave."""
+def _choice(what: str, value: str, allowed) -> str:
+    if value not in allowed:
+        raise ValueError(f"unknown {what} {value!r}: expected one of {', '.join(allowed)}")
+    return value
+
+
+def resolve_build(build: str) -> str:
+    """``build`` if it names one of BUILDS; raises otherwise."""
+    return _choice("build", build, BUILDS)
+
+
+def resolve_mxu_dtype(mxu_dtype: str) -> str:
+    """``mxu_dtype`` if it names one of MXU_DTYPES; raises otherwise."""
+    return _choice("mxu_dtype", mxu_dtype, MXU_DTYPES)
+
+
+def hybrid_bf16(level: int, mxu_dtype: str) -> Tuple[bool, bool]:
+    """(conv_bf16, band_bf16) of a pyramid level: whether the 9x9 stencils and
+    the band pair take bf16 operands where the reference runs its MXU kernels
+    (its ``_hybrid_bf16`` with the env default resolved). "hybrid" keeps the
+    finest level f32; "hybrid-band" keeps the band pair f32 everywhere."""
+    resolve_mxu_dtype(mxu_dtype)
+    if mxu_dtype == "hybrid":
+        return level > 0, level > 0
+    if mxu_dtype == "hybrid-band":
+        return True, False
+    return mxu_dtype == "bf16", mxu_dtype == "bf16"
+
+
+def build_riesz_pyramid(frame: torch.Tensor, levels: int, *, build: str = "auto",
+                        mxu_dtype: str = "f32", pyr_io: str = "f32") -> List[RieszLevel]:
+    """buildPyramid (:215-238): levels-1 band levels + the untouched final octave.
+
+    Per band level with short side m, as the reference's build_riesz_pyramid
+    (:148-217) picks (the caller resolves the flags; nothing here reads the
+    environment):
+
+      * riesz_build_level (one pass, f32 operands) where m >= MIN_FUSED_SIDE
+        and either m < MIN_MXU_SIDE or ``build == "fused"``;
+      * conv9, band5 and lp9_decimate otherwise, with bf16 operands where
+        m >= MIN_MXU_SIDE as ``hybrid_bf16`` says, f32 below 16.
+
+    ``pyr_io == "bf16"`` stores each band level's hp and Riesz pair as bf16:
+    conv9 and band5 round on the store (band5 reads the bf16 hp), the other
+    routes round their f32 results. The decimated octaves and the residual
+    level stay f32."""
+    resolve_build(build)
+    od = resolve_dtype(pyr_io)
     pyr = []
     octave = frame
-    for _ in range(levels - 1):
-        hp = conv9(octave, RIESZ_HIGHPASS_9x9)
-        r, i = band5(hp, RIESZ_BAND_KERNEL)
+    for lvl in range(levels - 1):
+        m = min(octave.shape)
+        if m >= MIN_FUSED_SIDE and (build == "fused" or m < MIN_MXU_SIDE):
+            hp, r, i, sub = riesz_build_level(octave, out_dtype=pyr_io)
+        elif m >= MIN_MXU_SIDE:
+            conv_bf16, band_bf16 = hybrid_bf16(lvl, mxu_dtype)
+            hp = conv9(octave, RIESZ_HIGHPASS_9x9, bf16=conv_bf16, out_dtype=pyr_io)
+            r, i = band5(hp, RIESZ_BAND_KERNEL, bf16=band_bf16, out_dtype=pyr_io)
+            sub = lp9_decimate(octave, LOWPASS_2X, bf16=conv_bf16)
+        else:
+            hp = conv9(octave, RIESZ_HIGHPASS_9x9)
+            r, i = band5(hp, RIESZ_BAND_KERNEL)
+            hp, r, i = hp.to(od), r.to(od), i.to(od)
+            sub = lp9_decimate(octave, LOWPASS_2X)
         pyr.append(RieszLevel(hp, CompExp(r, i)))
-        octave = lp9_decimate(octave, LOWPASS_2X)
+        octave = sub
     pyr.append(RieszLevel(octave, CompExp(correlate_rows(octave, RIESZ_BAND_KERNEL),
                                           correlate_cols(octave, RIESZ_BAND_KERNEL))))
     return pyr
+
+
+def level_f32(level: RieszLevel) -> RieszLevel:
+    """The level's planes as float32 (the same tensors where they are)."""
+    return RieszLevel(level.lowpass.float(), CompExp(level.riesz.cos.float(),
+                                                     level.riesz.sin.float()))
 
 
 PI_F32 = float(np.float32(np.pi))
@@ -181,12 +264,21 @@ def amplify_level(level: RieszLevel, normalized: CompExp, alpha: float,
     return level.lowpass * cos_rot - pair * sin_rot
 
 
-def collapse_riesz_pyramid(lowpasses: List[torch.Tensor]) -> torch.Tensor:
+def collapse_riesz_pyramid(lowpasses: List[torch.Tensor], *,
+                           mxu_dtype: str = "f32") -> torch.Tensor:
     """collapsePyramid (:304-325): zero-injected 2*LP9 upsample + high-pass of
-    each finer octave, coarsest first."""
+    each finer octave, coarsest first. lp9_inject and conv9 take bf16
+    operands (``hybrid_bf16``) only where the reference runs its MXU kernels
+    (:326-351): even sides, exactly twice the coarser result, short side >=
+    MIN_MXU_SIDE; f32 elsewhere."""
     result = lowpasses[-1]
-    for octave in reversed(lowpasses[:-1]):
-        lp = lp9_inject(result, LOWPASS_2X, tuple(octave.shape))
-        hp = conv9(octave, RIESZ_HIGHPASS_9x9)
+    for lvl in range(len(lowpasses) - 2, -1, -1):
+        octave = lowpasses[lvl]
+        h, w = octave.shape
+        mxu = (h % 2 == 0 and w % 2 == 0 and (h, w) == (2 * result.shape[0], 2 * result.shape[1])
+               and min(h, w) >= MIN_MXU_SIDE)
+        conv_bf16 = hybrid_bf16(lvl, mxu_dtype)[0] and mxu
+        lp = lp9_inject(result, LOWPASS_2X, (h, w), bf16=conv_bf16)
+        hp = conv9(octave, RIESZ_HIGHPASS_9x9, bf16=conv_bf16)
         result = lp + hp
     return result

@@ -1,6 +1,7 @@
-"""Card-only tests of the port: the CUDA stencil and tail kernels against
-their plain versions, and the phase step (under each tail configuration) and
-chain on the card against the CPU.
+"""Card-only tests of the port: the CUDA stencil, build and tail kernels
+(with their bf16 arms) against their plain versions, and the phase step
+(under each tail configuration, each build and the fast flags) and chain on
+the card against the CPU.
 
 Marked ``cuda``; each test decides inside itself whether a card exists and
 skips otherwise. They import neither JAX nor cv2, so they run where only torch
@@ -224,3 +225,151 @@ def test_step_on_the_card_matches_the_cpu_under_each_tail(cuda, tail_name, phase
                 ("jnp", True): {"riesz_phase_df2_fused"},
                 ("pallas", True): {"riesz_phase_df2_fused", "riesz_amplify_fused"}}
     assert launched == expected[(tail_name, phase_fused)]
+
+
+# ---------------------------------------------------------------- K5 and the bf16 arms
+
+# odd shapes, the 1080p level K5 runs on by default, and every band level of
+# 1080p and 2160x3840 levels=6
+BUILD_SHAPES = [(16, 16), (33, 257), (97, 201), (135, 241), (70, 130), (100, 101), (68, 120),
+                (1080, 1920), (540, 960), (270, 480), (135, 240), (2160, 3840)]
+
+
+def _exact(got, ref):
+    """Within 1e-6 x max(1, max|plain|), the stencils' bar; 0 expected."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype and got.device == ref.device
+    err = float((got.float() - ref.float()).abs().max())
+    assert err <= 1e-6 * max(1.0, float(ref.float().abs().max())), err
+
+
+@pytest.mark.parametrize("out_dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", BUILD_SHAPES)
+def test_build_level_equals_plain_version_and_the_three_stencils(cuda, shape, out_dtype):
+    x = _plane(shape, cuda)
+    before = stencils.LAUNCHES["riesz_build_level"]
+    got = stencils.riesz_build_level(x, out_dtype=out_dtype)
+    ref = stencils.riesz_build_level_plain(x, out_dtype)
+    torch.cuda.synchronize()
+    assert stencils.LAUNCHES["riesz_build_level"] == before + 1
+    for g, r in zip(got, ref):
+        _exact(g, r)
+    hp = stencils.conv9(x, RIESZ_HIGHPASS_9x9)
+    r, i = stencils.band5(hp, RIESZ_BAND_KERNEL)
+    od = stencils.DTYPES[out_dtype]
+    for g, k in zip(got, (hp.to(od), r.to(od), i.to(od), stencils.lp9_decimate(x, LP2))):
+        _same(g, k)
+
+
+LEVEL_SHAPES = [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]
+
+
+@pytest.mark.parametrize("shape", SHAPES + LEVEL_SHAPES)
+def test_bf16_stencil_arms_equal_plain_versions(cuda, shape):
+    x = _plane(shape, cuda)
+    before = dict(stencils.LAUNCHES_BF16)
+    for bf16 in (False, True):
+        for od in ("f32", "bf16"):
+            _exact(stencils.conv9(x, RIESZ_HIGHPASS_9x9, bf16=bf16, out_dtype=od),
+                   stencils.conv9_plain(x, RIESZ_HIGHPASS_9x9, bf16, od))
+            for hp in (x, x.to(torch.bfloat16)):
+                got = stencils.band5(hp, RIESZ_BAND_KERNEL, bf16=bf16, out_dtype=od)
+                ref = stencils.band5_plain(hp, RIESZ_BAND_KERNEL, bf16, od)
+                for g, r in zip(got, ref):
+                    _exact(g, r)
+    _exact(stencils.lp9_decimate(x, LP2, bf16=True), stencils.lp9_decimate_plain(x, LP2, True))
+    torch.cuda.synchronize()
+    assert stencils.LAUNCHES_BF16["conv9"] == before["conv9"] + 2
+    assert stencils.LAUNCHES_BF16["band5"] == before["band5"] + 4
+    assert stencils.LAUNCHES_BF16["lp9_decimate"] == before["lp9_decimate"] + 1
+
+
+@pytest.mark.parametrize("small,out", [((17, 129), (33, 257)), ((68, 121), (135, 241)),
+                                       ((34, 60), (68, 120)), ((68, 120), (135, 240)),
+                                       ((135, 240), (270, 480)), ((270, 480), (540, 960)),
+                                       ((540, 960), (1080, 1920)), ((1080, 1920), (2160, 3840))])
+def test_bf16_inject_arm_equals_plain_version(cuda, small, out):
+    s = _plane(small, cuda)
+    _exact(stencils.lp9_inject(s, LP2, out, bf16=True),
+           stencils.lp9_inject_plain(s, LP2, out, bf16=True))
+
+
+@pytest.mark.parametrize("preweighted", [False, True])
+@pytest.mark.parametrize("shape", TAIL_SHAPES + LEVEL_SHAPES)
+def test_amplify_mxu_fast_arms_equal_plain_versions(cuda, shape, preweighted):
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+
+    args, kw = _tail_args("riesz_amplify_mxu", shape, preweighted, cuda)
+    planes, scalars = args[:6], args[6:]
+    before = dict(tail.LAUNCHES_BF16)
+    n = 0
+    for blur_dt in (torch.float32, torch.bfloat16):
+        for ew_dt in (torch.float32, torch.bfloat16):
+            for bf16 in (False, True):
+                ins = [p.to(blur_dt) for p in planes[:3]] + [p.to(ew_dt) for p in planes[3:]]
+                got = tail.riesz_amplify_mxu(*ins, *scalars, bf16=bf16, **kw)
+                ref = tail.riesz_amplify_plain(*ins, *scalars, bf16=bf16, **kw)
+                assert got.dtype == torch.float32
+                torch.testing.assert_close(got, ref, rtol=0, equal_nan=True,
+                                           atol=1e-6 * max(1.0, float(ref.abs().max())))
+                n += bf16
+    torch.cuda.synchronize()
+    assert tail.LAUNCHES_BF16["riesz_amplify_mxu"] == before["riesz_amplify_mxu"] + n
+
+
+def test_build_and_bf16_arms_never_take_the_plain_version(cuda, monkeypatch):
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, names in ((stencils, ("conv9_plain", "band5_plain", "lp9_decimate_plain",
+                                   "lp9_inject_plain", "riesz_build_level_plain")),
+                       (tail, ("riesz_amplify_plain",))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    x = _plane((40, 60), cuda)
+    stencils.riesz_build_level(x, out_dtype="bf16")
+    stencils.conv9(x, RIESZ_HIGHPASS_9x9, bf16=True, out_dtype="bf16")
+    stencils.band5(x.to(torch.bfloat16), RIESZ_BAND_KERNEL, bf16=True, out_dtype="bf16")
+    stencils.lp9_decimate(x, LP2, bf16=True)
+    stencils.lp9_inject(x, LP2, (79, 120), bf16=True)
+    args, kw = _tail_args("riesz_amplify_mxu", (40, 60), False, cuda)
+    tail.riesz_amplify_mxu(*[a.to(torch.bfloat16) for a in args[:6]], *args[6:], bf16=True)
+    torch.cuda.synchronize()
+
+
+FAST = dict(tail="mxu", mxu_dtype="bf16", pyr_io="bf16", tail_io="bf16")
+
+
+@pytest.mark.parametrize("flags", [dict(build="auto"), dict(build="fused"), FAST],
+                         ids=["auto", "fused", "fast"])
+def test_step_on_the_card_matches_the_cpu_under_each_build(cuda, flags):
+    """136x240, levels=4: level 0 takes the three stencils (bf16 operands
+    under the fast flags), levels 1 and 2 (68x120, 34x60) the fused build."""
+    from live_video_magnification_tpu_torch.models import riesz
+    from live_video_magnification_tpu_torch.ops.temporal import butterworth_bandpass_coeffs
+    from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w, levels = 136, 240, 4
+    c3 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32))
+    (b_lo, a_lo), (b_hi, a_hi) = (butterworth_bandpass_coeffs(0.5, 30.0),
+                                  butterworth_bandpass_coeffs(3.0, 30.0))
+    dyn = riesz.RieszDynParams(30.0, float(np.float32(0.4 * np.pi)), c3(b_lo), c3(a_lo),
+                               c3(b_hi), c3(a_hi), False, False)
+    pyr_io = flags.get("pyr_io", "f32")
+    gpu = riesz.init_state(h, w, levels, device=cuda, pyr_io=pyr_io)
+    cpu = riesz.init_state(h, w, levels, device="cpu", pyr_io=pyr_io)
+    before = stencils.LAUNCHES["riesz_build_level"]
+    for i, f in enumerate(moving_clip(5, h, w, seed=6)):
+        chw = torch.from_numpy(np.ascontiguousarray(f.transpose(2, 0, 1)))
+        gpu, a = riesz.step(gpu, chw.to(cuda), dyn, levels=levels, **flags)
+        cpu, b = riesz.step(cpu, chw, dyn, levels=levels, **flags)
+        a, b = a.cpu().numpy(), b.numpy()
+        lsb = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+        assert psnr_u8(a, b) >= 40.0, f"{flags} frame {i}: {psnr_u8(a, b):.2f} dB, max {lsb} LSB"
+        if flags is not FAST:
+            assert lsb <= 1, f"{flags} frame {i}: max {lsb} LSB"
+    per_frame = {"fused": 3}.get(flags.get("build"), 2)
+    assert stencils.LAUNCHES["riesz_build_level"] == before + 5 * per_frame
+    assert gpu.old[0].lowpass.dtype == stencils.DTYPES[pyr_io]
