@@ -38,7 +38,18 @@ checkout, then:
      shapes, 68x120 and every 4K band level, timed beside K1+K2+K3 at the
      same shape; every bf16 arm of K1-K4 and K6 against its plain version,
      timed at every 4K level with a cuDNN bf16 conv2d where one computes the
-     same function.
+     same function;
+  7. the column halo exchange (K10, ops/hopper/halo.py) against its plain
+     version, bit for bit, for 1, 2, 4 and 8 shards on the card, halos 2, 4
+     and 6, both right modes, with and without a leading stack of 6 planes,
+     and every exchange of the 4K sharded frame; timed at those shapes;
+  8. the lane-sharded phase step (parallel/riesz_sharded.py, every halo
+     exchange through K10) at 2160x3840, levels=6, 6 frames, tail mxu: a
+     (1,4) mesh of cuda:0 repeated (virtual shards), and a mesh of 1 with the
+     default plan and forced sharded; frames against the unsharded step's
+     (1 LSB; mesh of 1 bit-equal), K10 launches a frame as derived from the
+     plan; then the same on real cards when there are two or more, with its
+     ms/frame beside the mesh of 1's.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -132,6 +143,9 @@ CONFIGS = {
 # the configuration whose run supplies each tail kernel's launch count
 TAIL_MAIN_PATH = {"riesz_phase_df2_fused": "phase_fused", "riesz_amplify_fused": "pallas",
                   "riesz_amplify_mxu": "mxu", "riesz_level_mxu": "level"}
+HALO_SOURCE = "live_video_magnification_tpu_torch/ops/hopper/csrc/halo.cu"
+HALO_REPLACES = "live_video_magnification_tpu/parallel/halo.py:152"
+SHARDED_TAIL = "mxu"  # the tail of the sharded runs: K6 on every sharded level
 
 
 def log(**kw) -> None:
@@ -944,6 +958,233 @@ def bf16_kernel_time(dev, st, tl, sizes):
     return rows
 
 
+def halo_exchanges(plan, tail):
+    """(shard shape, halo, right mode) of every column exchange one frame of
+    the lane-sharded step makes, in its order, derived from the plan: one
+    halo-6 exchange per sharded build level; halo 2 for a sharded last band;
+    per sharded active level one halo-6 exchange of the 6-plane stack where
+    a tail kernel takes the haloed strip (both sides >= 16), else three of
+    single planes; and in the collapse halo 2 (symmetric, the small image)
+    and halo 4 per level whose coarser level is sharded too, halo 4 alone
+    where it is replicated."""
+    from live_video_magnification_tpu_torch.ops.hopper.tail import MIN_SIDE
+
+    local = lambda l: (plan.sizes[l][0], plan.sizes[l][1] // plan.n)
+    last = plan.levels - 1
+    calls = [(local(l), 6, "reflect") for l in range(last) if plan.sharded[l]]
+    if plan.sharded[last]:
+        calls.append((local(last), 2, "reflect"))
+    for l in range(last):
+        if plan.sharded[l]:
+            h, wl = local(l)
+            if tail != "jnp" and min(h, wl + 12) >= MIN_SIDE:
+                calls.append(((6, h, wl), 6, "reflect"))
+            else:
+                calls += [((h, wl), 6, "reflect")] * 3
+    for l in range(last - 1, -1, -1):
+        if plan.sharded[l] and plan.sharded[l + 1]:
+            calls += [(local(l + 1), 2, "symmetric"), (local(l), 4, "reflect")]
+        elif plan.sharded[l]:
+            calls.append((local(l), 4, "reflect"))
+    return calls
+
+
+def halo_shards(rng, devices, shape):
+    import torch
+
+    return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(d)
+            for d in devices]
+
+
+def halo_kernel_check(dev, hl, plan4k):
+    """K10 against its plain version on the card, bit for bit: 1, 2, 4 and 8
+    virtual shards, halos 2, 4, 6, both right modes, leading dims () and
+    (6,), odd rows and widths; and every exchange of the 4K frame on its
+    4-way mesh. Returns the largest |kernel - plain| (0 expected)."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 9)
+    cases = [(n, (*lead, rows, wl), halo, mode)
+             for n in (1, 2, 4, 8) for rows, wl in ((33, 13), (97, 31), (135, 61))
+             for lead in ((), (6,)) for halo in (2, 4, 6) for mode in ("reflect", "symmetric")]
+    cases += [(plan4k.n, shape, halo, mode)
+              for shape, halo, mode in dict.fromkeys(halo_exchanges(plan4k, SHARDED_TAIL))]
+    worst = 0.0
+    for n, shape, halo, mode in cases:
+        xs = halo_shards(rng, [dev] * n, shape)
+        before = hl.LAUNCHES["halo_exchange_cols_rdma"]
+        got = hl.halo_exchange_cols_rdma(xs, halo, mode)
+        ref = hl.halo_exchange_cols_rdma_plain(xs, halo, mode)
+        torch.cuda.synchronize()
+        if hl.LAUNCHES["halo_exchange_cols_rdma"] != before + 1:
+            raise AssertionError(f"K10 at {n} x {shape}: not one launch for one device")
+        for g, r in zip(got, ref):
+            if g.shape != r.shape or not torch.equal(g, r):
+                raise AssertionError(f"K10 at {n} x {shape}, halo {halo}, {mode}: max "
+                                     f"|kernel - plain| {float((g - r).abs().max())}")
+            worst = max(worst, float((g - r).abs().max()))
+    log(phase="halo_kernel_check", kernel="halo_exchange_cols_rdma", cases=len(cases),
+        shards=[1, 2, 4, 8], halos=[2, 4, 6], right_modes=["reflect", "symmetric"],
+        shapes_4k=[[list(s), h, m] for s, h, m in dict.fromkeys(halo_exchanges(plan4k, SHARDED_TAIL))],
+        max_abs_err=worst, tolerance="bit-equal (a copy)")
+    return worst
+
+
+def halo_kernel_time(dev, hl, plan4k):
+    """ms of K10 and of its plain version on 4 virtual shards of the 4K frame
+    at each exchange shape of its frame, with the bound from this run's
+    shapes: each input read once (n * rows * w_l values), each output
+    written once (n * rows * (w_l + 2h)). Returns (rows, the per-frame sums)."""
+    rng = np.random.default_rng(SEED + 10)
+    n = plan4k.n
+    calls = halo_exchanges(plan4k, SHARDED_TAIL)
+    rows, per_call = [], {}
+    for shape, halo, mode in dict.fromkeys(calls):
+        xs = halo_shards(rng, [dev] * n, shape)
+        ms = cuda_ms(lambda: hl.halo_exchange_cols_rdma(xs, halo, mode), 50)
+        plain_ms = cuda_ms(lambda: hl.halo_exchange_cols_rdma_plain(xs, halo, mode), 20)
+        elems = int(np.prod(shape[:-1])) * n
+        nbytes = 4 * elems * (2 * shape[-1] + 2 * halo)
+        bound_ms, bound_by = bound(nbytes, 0)
+        row = dict(kernel="halo_exchange_cols_rdma", shards=n, shape=list(shape), halo=halo,
+                   right_mode=mode, ms=ms, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_share=bound_ms / ms, bound_by=bound_by,
+                   bytes=nbytes, per_frame=calls.count((shape, halo, mode)))
+        rows.append(row)
+        per_call[(shape, halo, mode)] = row
+        log(phase="halo_kernel_time", **row)
+    frame = {k: sum(per_call[c][k] for c in calls) for k in ("ms", "plain_ms", "bound_ms")}
+    log(phase="halo_kernel_time_per_frame", shards=n, exchanges=len(calls), **frame,
+        bound_share=frame["bound_ms"] / frame["ms"],
+        library="none: no PyTorch call takes the shards and returns their haloed strips "
+                "(F.pad of the gathered frame gives one padded array, after a gather)")
+    return rows, frame
+
+
+def sharded_dyn():
+    from live_video_magnification_tpu_torch.models.riesz import RieszDynParams
+
+    b_lo, a_lo, b_hi, a_hi = (tuple(float(x) for x in c) for c in tail_coeffs())
+    return RieszDynParams(50.0, float(np.float32(50.0 * np.pi / 100.0)), b_lo, a_lo, b_hi,
+                          a_hi, False, False)
+
+
+def run_unsharded(torch, dev, frames, levels, tail):
+    """The port's unsharded step over [T,3,H,W] u8 frames on ``dev``."""
+    from live_video_magnification_tpu_torch.models import riesz
+
+    dyn = sharded_dyn()
+    state = riesz.init_state(frames.shape[2], frames.shape[3], levels, device=dev)
+    outs = []
+    for f in frames:
+        state, out = riesz.step(state, f.to(dev), dyn, levels=levels, tail=tail)
+        outs.append(out.cpu().numpy())
+    return np.stack(outs)
+
+
+def run_sharded(torch, devices, frames, levels, modules, **kw):
+    """The frames through build_sharded_riesz_step on a (1, len(devices))
+    mesh, counts reset just before. Returns (outputs, step seconds, launch
+    counts, peak memory of the first device, plan)."""
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+    from live_video_magnification_tpu_torch.parallel.riesz_sharded import (
+        build_sharded_riesz_step,
+        make_plan,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t, _, h, w = frames.shape
+    mesh = make_mesh((1, len(devices)), devices=devices)
+    step, state = build_sharded_riesz_step(mesh, 1, h, w, levels, **kw)
+    dyn = sharded_dyn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(devices[0])
+    reset_counts(*modules)
+    outs, step_s = [], []
+    for f in frames:
+        t0 = time.perf_counter()
+        state, out = step(state, f[None], dyn)
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+        step_s.append(time.perf_counter() - t0)
+        outs.append(out[0])
+    launches = launch_counts(*modules)
+    peak = torch.cuda.max_memory_allocated(devices[0])
+    plan = make_plan(h, w, levels, len(devices), force_sharded=kw.get("force_sharded", False))
+    return torch.stack(outs).cpu().numpy(), step_s, launches, peak, plan
+
+
+def sharded_runs(torch, frames, levels, ref, modules, hl, configs, phase, baseline=None):
+    """Each (name, devices, kwargs) of ``configs`` through run_sharded;
+    frames against ``ref`` (the unsharded step's under the same tail), K10
+    launches against the count derived from the plan (one a distinct device
+    and exchange). ``baseline``: a steady ms/frame logged beside each run's
+    (the mesh of 1's). Returns each run's launch counts and steady ms/frame."""
+    runs = {}
+    for name, devices, kw in configs:
+        out, step_s, launches, peak, plan = run_sharded(torch, devices, frames, levels, modules,
+                                                        tail=SHARDED_TAIL, **kw)
+        t = len(frames)
+        lsb = [int(np.abs(out[i].astype(np.int16) - ref[i].astype(np.int16)).max())
+               for i in range(t)]
+        exact = len(devices) == 1
+        if max(lsb) > (0 if exact else 1):
+            raise AssertionError(f"{phase} {name}: frames off the unsharded step's by {lsb} LSB")
+        if not np.array_equal(out[0], frames[0].numpy()):
+            raise AssertionError(f"{phase} {name}: frame 0 is not the passthrough of the input")
+        exchanges = halo_exchanges(plan, SHARDED_TAIL)
+        want = len(exchanges) * len(set(devices))
+        got = launches["halo_exchange_cols_rdma"]
+        if got != want * t:
+            raise AssertionError(f"{phase} {name}: K10 launched {got} times in {t} frames, "
+                                 f"derived {want} a frame")
+        steady = 1e3 * sum(step_s[2:]) / len(step_s[2:])
+        runs[name] = dict(launches=launches, steady_ms_per_frame=steady)
+        extra = {} if baseline is None else dict(
+            mesh_1x1_steady_ms_per_frame=baseline, over_mesh_1x1=steady / baseline)
+        log(phase=phase, config=name, devices=[str(d) for d in devices],
+            card=torch.cuda.get_device_name(devices[0]), shape=list(frames.shape[2:]),
+            levels=levels, frames=t, tail=SHARDED_TAIL, plan_sharded=list(plan.sharded),
+            step_ms=[1e3 * x for x in step_s], steady_ms_per_frame=steady, **extra,
+            peak_memory_bytes_first_device=peak, max_lsb_vs_unsharded=lsb,
+            exchanges_per_frame=len(exchanges), k10_launches_per_frame=got / t,
+            k10_launches_derived_per_frame=want,
+            launches_per_frame={k: v / t for k, v in launches.items() if v})
+    return runs
+
+
+def slice_4k_sharded(torch, dev, st, tl, hl, h=2160, w=3840, t=6):
+    """The lane-sharded step at 4K, levels=6, on virtual shards of one card,
+    then on real cards when there are two or more."""
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    levels = 6
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    frames = torch.from_numpy(np.ascontiguousarray(
+        moving_clip(t, h, w, seed=SEED + 11).transpose(0, 3, 1, 2)))
+    t0 = time.perf_counter()
+    ref = run_unsharded(torch, dev, frames, levels, SHARDED_TAIL)
+    log(phase="slice_4k_sharded_reference", tail=SHARDED_TAIL, frames=t,
+        seconds=time.perf_counter() - t0)
+    modules = (st, tl, hl)
+    runs = sharded_runs(torch, frames, levels, ref, modules, hl, [
+        ("virtual_1x4", [dev] * 4, {}),
+        ("mesh_1x1", [dev], {}),
+        ("mesh_1x1_force_sharded", [dev], dict(force_sharded=True)),
+    ], "slice_4k_sharded")
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        devices = [torch.device("cuda", i) for i in range(min(cards, 4))]
+        sharded_runs(torch, frames, levels, ref, modules, hl,
+                     [(f"cards_1x{len(devices)}", devices, {})], "slice_sharded_multi_gpu",
+                     baseline=runs["mesh_1x1"]["steady_ms_per_frame"])
+    else:
+        log(phase="slice_sharded_multi_gpu", skipped="one CUDA device")
+    return runs
+
+
 def main() -> int:
     import torch
 
@@ -952,9 +1193,11 @@ def main() -> int:
         return 2
     from live_video_magnification_tpu_torch.device import resolve_device
     from live_video_magnification_tpu_torch.ops.hopper import _build
+    from live_video_magnification_tpu_torch.ops.hopper import halo as hl
     from live_video_magnification_tpu_torch.ops.hopper import stencils as st
     from live_video_magnification_tpu_torch.ops.hopper import tail as tl
     from live_video_magnification_tpu_torch.ops.riesz import riesz_level_sizes
+    from live_video_magnification_tpu_torch.parallel.riesz_sharded import make_plan
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -984,12 +1227,16 @@ def main() -> int:
     build_times = build_kernel_time(dev, st, sizes)
     bf16_errs = bf16_kernel_check(dev, st, tl, sizes)
     bf16_times = bf16_kernel_time(dev, st, tl, sizes)
+    plan4k = make_plan(2160, 3840, 6, 4)
+    halo_err = halo_kernel_check(dev, hl, plan4k)
+    halo_times, halo_frame = halo_kernel_time(dev, hl, plan4k)
     launches, frames, jnp_out = slice_4k(torch, dev, st, tl)
     runs = slice_4k_tails(torch, dev, st, tl, frames, jnp_out)
     del frames, jnp_out
     flagship = slice_card_vs_cpu(torch, dev, st, tl, "jnp")
     slice_card_vs_cpu(torch, dev, st, tl, "level")
     slice_card_vs_cpu(torch, dev, st, tl, "fast")
+    sharded = slice_4k_sharded(torch, dev, st, tl, hl)
 
     path = lambda name: " ".join(f"{k}={v}" for k, v in CONFIGS[name][0].items()) or "defaults"
     level0 = lambda rows, k: next(r for r in rows if r["kernel"] == k and r["level"] == 0
@@ -1042,6 +1289,20 @@ def main() -> int:
                             max_abs_err=bf16_errs[k], ms=top["ms"], plain_ms=top["plain_ms"],
                             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                             library_ms=top["library_ms"], shape=top["shape"]))
+    # K10 at the largest exchange of the 4K sharded frame (the tail's 6-plane
+    # stack at level 0, halo 6) with its frame's sums beside it
+    top = max(halo_times, key=lambda r: r["bytes"])
+    launched = sharded["virtual_1x4"]["launches"]["halo_exchange_cols_rdma"]
+    if launched == 0:
+        raise AssertionError("halo_exchange_cols_rdma was not launched on its path")
+    kernels.append(dict(name="halo_exchange_cols_rdma", route="cuda", source=HALO_SOURCE,
+                        replaces=HALO_REPLACES, launches=launched,
+                        path=f"2160x3840 levels=6, sharded step, (1,4) mesh of one card, "
+                             f"tail={SHARDED_TAIL}",
+                        max_abs_err=halo_err, ms=top["ms"], plain_ms=top["plain_ms"],
+                        bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
+                        shape=top["shape"], shards=top["shards"], halo=top["halo"],
+                        per_frame=halo_frame))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

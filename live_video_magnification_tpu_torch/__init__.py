@@ -13,11 +13,13 @@ Layering (lower layers never import higher ones):
                   that carry the pyramid stencils on the card
     models/       the phase (Riesz) pipeline as a step function with explicit
                   carried state, and the processing chain around it
+    parallel/     the mesh, the halo exchanges and the lane-sharded phase step
     export/       sequential clip processing with checkpoint/resume
     convert.py    carried state and dynamic parameters from the JAX package
 
-Ported so far: the phase main path. Motion and color modes, the time-parallel
-forms, the engine, video I/O and the CLI are still to come (ROADMAP.md).
+Ported so far: the phase main path and its lane-sharded step. Motion and
+color modes, the time-parallel forms, the engine, video I/O, the CLI and the
+rest of parallel/ are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

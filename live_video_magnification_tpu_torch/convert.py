@@ -7,6 +7,11 @@ NamedTuples, so a state is a flat list of leaves in ``jax.tree.flatten`` order:
 (cos, sin), ``lo`` (reg0.cos, reg0.sin, reg1.cos, reg1.sin) and ``hi`` (the
 same). Checkpoints (``export/batch.py``) use the same order.
 
+The lane-sharded step (``parallel/riesz_sharded.py``) carries, per batch
+element, one RieszState per tile shard; the reference's sharded step carries
+one batched RieszState of global [B, ...] leaves. The two functions at the
+end map one to the other for a given mesh and plan.
+
 This module imports no JAX: callers hand over numpy arrays.
 """
 
@@ -19,6 +24,11 @@ import torch
 
 from live_video_magnification_tpu_torch.device import resolve_device
 from live_video_magnification_tpu_torch.models.riesz import RieszDynParams, init_state
+from live_video_magnification_tpu_torch.parallel.riesz_sharded import (
+    RieszShardPlan,
+    state_levels,
+    tile_rows,
+)
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -103,3 +113,50 @@ def riesz_dyn_from_jax(dyn: Any) -> RieszDynParams:
     amp, thr, b_lo, a_lo, b_hi, a_hi, reset, force = dyn
     return RieszDynParams(f(amp), f(thr), c3(b_lo), c3(a_lo), c3(b_hi), c3(a_hi),
                           bool(np.asarray(reset)), bool(np.asarray(force)))
+
+
+def sharded_riesz_state_from_jax(leaves: Sequence[np.ndarray], mesh, plan: RieszShardPlan):
+    """The lane-sharded step's state from the reference sharded step's
+    (batched RieszState leaves as global [B, ...] numpy arrays, in
+    ``jax.tree.flatten`` order): per batch element, the tuple of its tile
+    row's per-shard RieszStates, each on its device; sharded levels as the
+    shard's strip of W, replicated levels whole. f32 leaves."""
+    layout = state_levels(plan.levels)
+    levels_of = tree_leaves(layout)
+    if len(leaves) != len(levels_of):
+        raise ValueError(f"expected {len(levels_of)} state leaves, got {len(leaves)}")
+    batch = int(np.shape(leaves[0])[0])
+    state = []
+    for b, devices in enumerate(tile_rows(mesh, batch)):
+        row = []
+        for k, dev in enumerate(devices):
+            vals = []
+            for leaf, l in zip(leaves, levels_of):
+                if l < 0:
+                    vals.append(int(np.asarray(leaf)[b]))
+                    continue
+                a = np.asarray(leaf, np.float32)[b]
+                if plan.sharded[l]:
+                    wl = a.shape[-1] // plan.n
+                    a = a[..., k * wl: (k + 1) * wl]
+                vals.append(torch.tensor(np.ascontiguousarray(a), device=dev))
+            row.append(tree_unflatten(layout, vals))
+        state.append(tuple(row))
+    return tuple(state)
+
+
+def sharded_riesz_state_to_jax(state, plan: RieszShardPlan) -> List[np.ndarray]:
+    """The inverse of ``sharded_riesz_state_from_jax``: global [B, ...] numpy
+    leaves (the count as int32 [B]), sharded levels concatenated over the
+    tile row, replicated levels from its first shard."""
+    levels_of = tree_leaves(state_levels(plan.levels))
+    rows = [[tree_leaves(s) for s in row] for row in state]
+    out = []
+    for j, l in enumerate(levels_of):
+        if l < 0:
+            out.append(np.asarray([row[0][j] for row in rows], np.int32))
+            continue
+        per_b = [np.concatenate([s[j].detach().cpu().numpy() for s in row], axis=-1)
+                 if plan.sharded[l] else row[0][j].detach().cpu().numpy() for row in rows]
+        out.append(np.stack(per_b))
+    return out

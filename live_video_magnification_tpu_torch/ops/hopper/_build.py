@@ -22,7 +22,7 @@ from typing import Callable, Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES: Dict[str, str] = {"stencils": "stencils.cu", "tail": "tail.cu"}
+SOURCES: Dict[str, str] = {"stencils": "stencils.cu", "tail": "tail.cu", "halo": "halo.cu"}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -373,3 +373,107 @@ def test_step_on_the_card_matches_the_cpu_under_each_build(cuda, flags):
     per_frame = {"fused": 3}.get(flags.get("build"), 2)
     assert stencils.LAUNCHES["riesz_build_level"] == before + 5 * per_frame
     assert gpu.old[0].lowpass.dtype == stencils.DTYPES[pyr_io]
+
+
+# ---------------------------------------------------------------- K10 and the sharded step
+
+HALO_SHAPES = [(33, 13), (97, 31), (135, 61), (6, 33, 13), (6, 135, 61)]
+
+
+@pytest.mark.parametrize("shape", HALO_SHAPES)
+@pytest.mark.parametrize("n", [1, 2, 4, 8])
+def test_halo_kernel_equals_plain_version(cuda, n, shape):
+    """K10 on n virtual shards of one card, every halo and right mode: a copy,
+    so bit-equal; one launch for the device's shards."""
+    from live_video_magnification_tpu_torch.ops.hopper import halo
+
+    rng = np.random.default_rng(n * 100 + shape[-1])
+    xs = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda)
+          for _ in range(n)]
+    for h in (2, 4, 6):
+        for mode in ("reflect", "symmetric"):
+            before = halo.LAUNCHES["halo_exchange_cols_rdma"]
+            got = halo.halo_exchange_cols_rdma(xs, h, mode)
+            ref = halo.halo_exchange_cols_rdma_plain(xs, h, mode)
+            torch.cuda.synchronize()
+            assert halo.LAUNCHES["halo_exchange_cols_rdma"] == before + 1
+            for g, r in zip(got, ref):
+                _same(g, r)
+
+
+def test_halo_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
+    from live_video_magnification_tpu_torch.ops.hopper import halo
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(halo, "halo_exchange_cols_rdma_plain", refuse)
+    xs = [_plane((40, 20), cuda, seed=k) for k in range(4)]
+    halo.halo_exchange_cols_rdma(xs, 6)
+    with pytest.raises(TypeError, match="float32"):
+        halo.halo_exchange_cols_rdma([x.to(torch.bfloat16) for x in xs], 6)
+    torch.cuda.synchronize()
+
+
+def _sharded_against_unsharded(devices, h, w, levels, tail, frames=4):
+    """Frames of the sharded step on a (1, len(devices)) mesh against the
+    unsharded step's on the first device; returns (worst LSB, K10 launches)."""
+    from live_video_magnification_tpu_torch.models import riesz
+    from live_video_magnification_tpu_torch.ops.hopper import halo
+    from live_video_magnification_tpu_torch.ops.temporal import butterworth_bandpass_coeffs
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+    from live_video_magnification_tpu_torch.parallel.riesz_sharded import build_sharded_riesz_step
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    c3 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32))
+    (b_lo, a_lo), (b_hi, a_hi) = (butterworth_bandpass_coeffs(0.5, 30.0),
+                                  butterworth_bandpass_coeffs(3.0, 30.0))
+    dyn = riesz.RieszDynParams(30.0, float(np.float32(0.4 * np.pi)), c3(b_lo), c3(a_lo),
+                               c3(b_hi), c3(a_hi), False, False)
+    step, state = build_sharded_riesz_step(make_mesh((1, len(devices)), devices=devices), 1,
+                                           h, w, levels, tail=tail)
+    ref = riesz.init_state(h, w, levels, device=devices[0])
+    before = halo.LAUNCHES["halo_exchange_cols_rdma"]
+    worst = 0
+    for f in moving_clip(frames, h, w, seed=8):
+        chw = torch.from_numpy(np.ascontiguousarray(f.transpose(2, 0, 1)))
+        state, a = step(state, chw[None], dyn)
+        ref, b = riesz.step(ref, chw.to(devices[0]), dyn, levels=levels, tail=tail)
+        assert a.device == b.device  # gathered on the mesh's first device
+        worst = max(worst, int((a[0].to(torch.int16) - b.to(torch.int16)).abs().max()))
+    for d in dict.fromkeys(devices):
+        torch.cuda.synchronize(d)
+    return worst, halo.LAUNCHES["halo_exchange_cols_rdma"] - before
+
+
+@pytest.mark.parametrize("tail", ["mxu", "jnp", "pallas"])
+def test_sharded_step_on_a_virtual_mesh_equals_the_unsharded_step(cuda, tail):
+    """270x480, levels=5 on 4 virtual shards of one card: levels 0-2 sharded,
+    3-4 replicated. K10 launches once an exchange: build 3, tail 3 (mxu,
+    pallas) or 9 (jnp), collapse 2 + 2 + 1."""
+    worst, launched = _sharded_against_unsharded([cuda] * 4, 270, 480, 5, tail)
+    assert worst <= 1, f"{worst} LSB"
+    assert launched == 4 * {"mxu": 11, "pallas": 11, "jnp": 17}[tail]
+
+
+def test_sharded_step_across_two_cards(cuda):
+    """The same on two cards: K10 reads the neighbour's edge over peer
+    access, one launch per card and exchange. 2-way, every level shards:
+    build 4, last band 1, tail 4, collapse 8."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the cross-card branch of K10 reads a peer's memory")
+    from live_video_magnification_tpu_torch.ops.hopper import halo
+
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    # shards alternating over the cards: every neighbour is on the other one
+    xs = [_plane((6, 97, 31), devices[k % 2], seed=k) for k in range(4)]
+    for mode in ("reflect", "symmetric"):
+        before = halo.LAUNCHES["halo_exchange_cols_rdma"]
+        got = halo.halo_exchange_cols_rdma(xs, 6, mode)
+        assert halo.LAUNCHES["halo_exchange_cols_rdma"] == before + 2
+        for g, r, x in zip(got, halo.halo_exchange_cols_rdma_plain(xs, 6, mode), xs):
+            assert g.device == x.device
+            _same(g, r)
+    worst, launched = _sharded_against_unsharded(devices, 270, 480, 5, "mxu")
+    assert worst <= 1, f"{worst} LSB"
+    assert launched == 4 * 2 * 17
