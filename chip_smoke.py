@@ -10,10 +10,14 @@ prints no result). It builds the port's CUDA kernels from the sources in the
 checkout, then:
 
   1. kernels: each stencil kernel (ops/hopper/stencils.py) against its plain
-     PyTorch version on the card, at odd shapes and at every level shape of a
-     2160x3840 levels=6 frame; times by CUDA events (kernel, plain version,
-     one PyTorch library call where one computes the same function) and the
-     bound from published H100 SXM peaks;
+     PyTorch version on the card, at odd shapes, at every level shape of a
+     2160x3840 levels=6 frame and (conv9, lp9_decimate) at every edge of
+     their tiles and with random taps; times by CUDA events over back-to-back
+     calls, the wrapper's host cost included (``ms``: kernel, plain version,
+     one PyTorch library call where one computes the same function), and the
+     kernel alone by CUDA graph replay (``graph_ms``); the bound from
+     published H100 SXM peaks, and for the 9x9 stencils a second computed
+     bound, the exactness floor (``exact_floor_ms``, EXACT_F32_OPS_PER_S);
   2. tail kernels (ops/hopper/tail.py): each entry point against its plain
      version on standard-normal inputs at odd shapes and at every active
      level of the 4K frame, both preweighted and both rebuild arms, within
@@ -36,9 +40,10 @@ checkout, then:
      level 4) and under the fast flags;
   6. the fused build (K5, riesz_build_level) against its plain version at odd
      shapes, 68x120 and every 4K band level, timed beside K1+K2+K3 at the
-     same shape; every bf16 arm of K1-K4 and K6 against its plain version,
-     timed at every 4K level with a cuDNN bf16 conv2d where one computes the
-     same function;
+     same shape; every bf16 arm of K1-K4 and K6 against its plain version
+     (the 9x9 arms also at every edge of their tiles), timed as in 1. at
+     every 4K level with a cuDNN bf16 conv2d where one computes the same
+     function;
   7. the column halo exchange (K10, ops/hopper/halo.py) against its plain
      version, bit for bit, for 1, 2, 4 and 8 shards on the card, halos 2, 4
      and 6, both right modes, with and without a leading stack of 6 planes,
@@ -70,6 +75,10 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, data sheet, at 700 W
 PEAK_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores, FMA = 2 ops
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate, f32 accumulation
+# The 9x9 stencils round every product and every sum on its own (__fmul_rn,
+# __fadd_rn: never fused), so each used tap costs two f32 instructions, at
+# most one a lane a cycle: 132 SMs x 128 f32 lanes x 1.98 GHz (H100 SXM boost).
+EXACT_F32_OPS_PER_S = 132 * 128 * 1.98e9
 SEED = 20261016
 REPLACES = {
     "conv9": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:287",
@@ -168,6 +177,60 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 3) -> float:
+    """Mean device time of fn() over iters calls captured in one CUDA graph
+    and replayed: the kernels alone, without the host's cost of each call."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up (and the kernel build) outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (replays * iters)
+
+
+def exact_floor_ms(taps, outputs: int) -> float:
+    """The least time of a 9x9 stencil that rounds each product and sum on its
+    own: two f32 instructions per used tap and output."""
+    return 2 * int(np.count_nonzero(taps)) * outputs / EXACT_F32_OPS_PER_S * 1e3
+
+
+def stencil9_shapes():
+    """Shapes that reach every edge of conv9's and lp9_decimate's tiles: the
+    smallest sides; one block of each tile (conv9 8x128 and 32x128 outputs,
+    decimate 8x64 and 16x128 outputs, i.e. 16x128 and 32x256 inputs) and
+    one more row or column; widths of each residue mod 4 (16-byte rows or
+    not), small and large enough for the tall tiles (two blocks an SM)."""
+    shapes = [(5, 5), (5, 9), (9, 5)]
+    for th, tw in [(8, 128), (32, 128), (16, 128), (32, 256)]:
+        shapes += [(th, tw), (th + 1, tw), (th, tw + 1)]
+    shapes += [(37, 200 + m) for m in range(4)] + [(545, 2048 + m) for m in range(4)]
+    return shapes + [(544, 2048), (1088, 4096), (1089, 4097)]
+
+
+def random_taps(rng):
+    """A standard-normal 9x9 bank with scattered zeros: the kernel's run-time
+    tap test (the "any" pattern)."""
+    k = rng.standard_normal((9, 9)).astype(np.float32)
+    k.flat[rng.choice(81, 9, replace=False)] = 0.0
+    k[4, 3] = 0.0  # an interior zero, whatever the draw
+    return k
+
+
 def kernel_phase(dev, st, sizes):
     """Kernel vs plain on the card at every shape; times at the finest level."""
     import torch
@@ -184,15 +247,24 @@ def kernel_phase(dev, st, sizes):
     inject_pairs = [((17, 129), (33, 257)), ((49, 101), (97, 201)), ((68, 121), (135, 241)),
                     ((64, 64), (128, 128))]
     inject_pairs += [(sizes[i + 1], sizes[i]) for i in range(len(sizes) - 1)]
+    s9_shapes = build_shapes + stencil9_shapes()
+    kr = random_taps(rng)
+    if st.tap_pattern(kr) != "any" or st.tap_pattern(LOWPASS_2X) != "dense" or \
+            st.tap_pattern(RIESZ_HIGHPASS_9x9) != "no_corners":
+        raise AssertionError("tap patterns misclassified")
+    any_shapes = [(5, 9), (33, 257), (545, 2049), (544, 2048), (1080, 1920)]
 
     cases = {
         "conv9": [(lambda x: st.conv9(x, RIESZ_HIGHPASS_9x9),
-                   lambda x: st.conv9_plain(x, RIESZ_HIGHPASS_9x9), s) for s in build_shapes],
+                   lambda x: st.conv9_plain(x, RIESZ_HIGHPASS_9x9), s) for s in s9_shapes]
+        + [(lambda x: st.conv9(x, kr), lambda x: st.conv9_plain(x, kr), s) for s in any_shapes],
         "band5": [(lambda x: st.band5(x, RIESZ_BAND_KERNEL),
                    lambda x: st.band5_plain(x, RIESZ_BAND_KERNEL), s) for s in build_shapes],
         "lp9_decimate": [(lambda x: st.lp9_decimate(x, LOWPASS_2X),
                           lambda x: st.lp9_decimate_plain(x, LOWPASS_2X), s)
-                         for s in build_shapes],
+                         for s in s9_shapes]
+        + [(lambda x: st.lp9_decimate(x, kr), lambda x: st.lp9_decimate_plain(x, kr), s)
+           for s in any_shapes],
         "lp9_inject": [(lambda x, o=o: st.lp9_inject(x, LOWPASS_2X, o),
                         lambda x, o=o: st.lp9_inject_plain(x, LOWPASS_2X, o), s)
                        for s, o in inject_pairs],
@@ -277,6 +349,7 @@ def time_phase(dev, st, sizes):
                            lambda: st.lp9_inject_plain(small, LOWPASS_2X, (h, w)), None,
                            (shw + hw) * f4, 2 * 81 * hw // 4),
         }
+        floors = {"conv9": (RIESZ_HIGHPASS_9x9, hw), "lp9_decimate": (LOWPASS_2X, oh * ow)}
         iters = 50 if lvl == 0 else 200
         for name, (kernel, plain, lib_in, nbytes, ops) in specs.items():
             ms = cuda_ms(kernel, iters)
@@ -288,11 +361,14 @@ def time_phase(dev, st, sizes):
                     lib_ms = cuda_ms(lambda: lib[name](inp), iters)
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-            rows.append(dict(kernel=name, level=lvl, shape=[h, w], ms=ms, plain_ms=plain_ms,
+            rows.append(dict(kernel=name, level=lvl, shape=[h, w], ms=ms,
+                             graph_ms=graph_ms(kernel, iters), plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=max(bytes_ms, ops_ms),
                              bound_share=max(bytes_ms, ops_ms) / ms,
                              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                              bytes=nbytes, operations=ops))
+            if name in floors:
+                rows[-1]["exact_floor_ms"] = exact_floor_ms(*floors[name])
             log(phase="kernel_time", **rows[-1])
     return rows
 
@@ -862,9 +938,15 @@ def bf16_kernel_check(dev, st, tl, sizes):
     rng = np.random.default_rng(SEED + 7)
     shapes = [(16, 16), (33, 257), (97, 201), (135, 241)] + list(sizes[:-1])
     smalls = [None] * 4 + list(sizes[1:])
+    # the 9x9 arms also at every edge of their tiles
+    s9_only = ("conv9[bf16]", "lp9_decimate[bf16]")
+    runs = [(s, sm, None) for s, sm in zip(shapes, smalls)]
+    runs += [(s, None, s9_only) for s in stencil9_shapes()]
     worst = {k: 0.0 for k in BF16_REPLACES}
-    for shape, small in zip(shapes, smalls):
+    for shape, small, only in runs:
         for name, kernel, plain in bf16_cases(st, tl, rng, dev, shape, small):
+            if only and name not in only:
+                continue
             got, ref = kernel(), plain()
             got = got if isinstance(got, tuple) else (got,)
             ref = ref if isinstance(ref, tuple) else (ref,)
@@ -879,7 +961,8 @@ def bf16_kernel_check(dev, st, tl, sizes):
                     raise AssertionError(f"{name} at {shape}: max |kernel - plain| {err} > {bar}")
                 worst[name] = max(worst[name], err)
     for name, err in worst.items():
-        log(phase="bf16_kernel_check", kernel=name, shapes=[list(s) for s in shapes],
+        checked = shapes + [s for s, _, only in runs if only and name in only]
+        log(phase="bf16_kernel_check", kernel=name, shapes=[list(s) for s in checked],
             max_abs_err=err, tolerance="1e-06 x max(1, max|plain|)")
     return worst
 
@@ -937,6 +1020,8 @@ def bf16_kernel_time(dev, st, tl, sizes):
             "lp9_inject[bf16]": (4 * (shw + hw), 0, 2 * 81 * hw // 4),
             "riesz_amplify_mxu[bf16]": ((6 * 2 + 4) * hw, k6_ops - k6_bf16, k6_bf16),
         }
+        floors = {"conv9[bf16]": (RIESZ_HIGHPASS_9x9, hw),
+                  "lp9_decimate[bf16]": (LOWPASS_2X, oh * ow)}
         iters = 50 if lvl == 0 else 200
         for name in BF16_REPLACES:
             kernel, plain = cases[name]
@@ -950,10 +1035,13 @@ def bf16_kernel_time(dev, st, tl, sizes):
                     lib_ms = cuda_ms(lambda: lib[name](inp), iters)
             nbytes, ops, bf16_ops = spec[name]
             bound_ms, bound_by = bound(nbytes, ops, bf16_ops)
-            rows.append(dict(kernel=name, level=lvl, shape=[h, w], ms=ms, plain_ms=plain_ms,
+            rows.append(dict(kernel=name, level=lvl, shape=[h, w], ms=ms,
+                             graph_ms=graph_ms(kernel, iters), plain_ms=plain_ms,
                              library_ms=lib_ms, library=lib_note[name],
                              bound_ms=bound_ms, bound_share=bound_ms / ms, bound_by=bound_by,
                              bytes=nbytes, operations=ops, bf16_operations=bf16_ops))
+            if name in floors:
+                rows[-1]["exact_floor_ms"] = exact_floor_ms(*floors[name])
             log(phase="bf16_kernel_time", **rows[-1])
     return rows
 
@@ -1246,10 +1334,12 @@ def main() -> int:
         top = level0(times, k)
         kernels.append(dict(name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
                             launches=launches[k], path=path("jnp"), max_abs_err=errs[k],
-                            ms=top["ms"],
+                            ms=top["ms"], graph_ms=top["graph_ms"],
                             plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                             bound_by=top["bound_by"], library_ms=top["library_ms"],
-                            shape=top["shape"]))
+                            shape=top["shape"],
+                            **({"exact_floor_ms": top["exact_floor_ms"]}
+                               if "exact_floor_ms" in top else {})))
     for k in TAIL_REPLACES:
         top = level0(tail_times, k)
         launched = runs[TAIL_MAIN_PATH[k]][k]
@@ -1286,9 +1376,12 @@ def main() -> int:
         kernels.append(dict(name=k, route="cuda",
                             source=TAIL_SOURCE if k.startswith("riesz") else SOURCE,
                             replaces=replaces, launches=launched, path=path("fast"),
-                            max_abs_err=bf16_errs[k], ms=top["ms"], plain_ms=top["plain_ms"],
+                            max_abs_err=bf16_errs[k], ms=top["ms"],
+                            graph_ms=top["graph_ms"], plain_ms=top["plain_ms"],
                             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                            library_ms=top["library_ms"], shape=top["shape"]))
+                            library_ms=top["library_ms"], shape=top["shape"],
+                            **({"exact_floor_ms": top["exact_floor_ms"]}
+                               if "exact_floor_ms" in top else {})))
     # K10 at the largest exchange of the 4K sharded frame (the tail's 6-plane
     # stack at level 0, halo 6) with its frame's sums beside it
     top = max(halo_times, key=lambda r: r["bytes"])

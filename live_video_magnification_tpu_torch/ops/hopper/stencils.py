@@ -33,10 +33,15 @@ lp9_decimate compute, in the same order, so it equals their composition bit
 for bit (hp's apron is taken by mirroring hp's index, as band5 reads it, not
 from the padded octave as the TPU kernel does). Its operands are always f32.
 
-The design notes (tiles, reflect-101 by index mirroring, the exact tap order)
-are at the top of the CUDA source. Unlike the TPU kernels, these take any side
-of at least 5 (reflect-101 with a 4-px reach), odd sides included;
-riesz_build_level takes sides of at least 16, the reference's MIN_FUSED_DIM.
+conv9 and lp9_decimate tell their kernel whether the taps they pass have
+the zero pattern of the bank each runs on the main path (``tap_pattern``:
+conv9's high-pass uses all but the corners, decimate's 2*LP9 all 81), which
+has an instantiation that skips those zeros at compile time; any other bank
+takes the kernel's run-time test of each tap. The design notes (tiles, reflect-101 by index
+mirroring, the exact tap order) are at the top of the CUDA source. Unlike the
+TPU kernels, these take any side of at least 5 (reflect-101 with a 4-px
+reach), odd sides included; riesz_build_level takes sides of at least 16, the
+reference's MIN_FUSED_DIM.
 
 ``LAUNCHES`` counts the kernel launches of each function with f32 operands,
 ``LAUNCHES_BF16`` those of the bf16 operand arms; a run that resets them can
@@ -73,6 +78,36 @@ MIN_SIDE = 5
 MIN_FUSED_SIDE = 16  # riesz_build_level, the reference's MIN_FUSED_DIM
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+# The zero pattern of each function's main-path bank, for which its kernel
+# has an instantiation (csrc/stencils.cu); the kernel tests any other bank's
+# taps as it runs.
+MAIN_TAPS = {"conv9": "no_corners", "lp9_decimate": "dense"}
+_NO_CORNERS = np.ones((9, 9), bool)
+_NO_CORNERS[::8, ::8] = False
+
+
+def tap_pattern(k9) -> str:
+    """Which taps of a 9x9 bank are used (non-zero, as the plain version
+    skips zeros): "dense", "no_corners" or "any"."""
+    used = np.asarray(k9, dtype=np.float32).reshape(9, 9) != 0
+    if used.all():
+        return "dense"
+    if np.array_equal(used, _NO_CORNERS):
+        return "no_corners"
+    return "any"
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_taps(key: bytes, bf16: bool, fn: str) -> Tuple[np.ndarray, bool]:
+    """The 81 taps fn's kernel takes (bf16-rounded for the bf16 arm) and
+    whether they have the zero pattern of fn's main-path bank, classified
+    after the rounding; cached by value so a call costs the host no more than
+    a lookup."""
+    taps = np.frombuffer(key, dtype=np.float32).copy()
+    if bf16:
+        taps = round_taps_bf16(taps)
+    return taps, tap_pattern(taps) == MAIN_TAPS[fn]
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -145,8 +180,8 @@ def _lib() -> ctypes.CDLL:
     lib = load_library("stencils")
     p, i = ctypes.c_void_p, ctypes.c_int
     signatures = {
-        "lvmt_conv9": [p, p, i, i, p, i, i, p],
-        "lvmt_lp9_decimate": [p, p, i, i, p, i, p],
+        "lvmt_conv9": [p, p, i, i, p, i, i, i, p],
+        "lvmt_lp9_decimate": [p, p, i, i, p, i, i, p],
         "lvmt_band5": [p, p, p, i, i, p, p, i, i, i, p],
         "lvmt_lp9_inject": [p, p, i, i, i, i, p, i, p],
         "lvmt_riesz_build_level": [p, p, p, p, p, i, i, p, p, p, i, p],
@@ -195,11 +230,11 @@ def conv9(x: torch.Tensor, k9, *, bf16: bool = False, out_dtype: str = "f32") ->
     bf16 = bool(bf16)
     if x.device.type == "cpu":
         return conv9_plain(x, taps.reshape(9, 9), bf16, out_dtype)
-    ktaps = round_taps_bf16(taps) if bf16 else taps
+    ktaps, main_taps = _kernel_taps(taps.tobytes(), bf16, "conv9")
     out = torch.empty(x.shape, dtype=od, device=x.device)
     h, w = x.shape
     _launch("conv9", bf16, x.device, x.data_ptr(), out.data_ptr(), h, w, ktaps.ctypes.data,
-            int(bf16), int(od == torch.bfloat16))
+            int(bf16), int(od == torch.bfloat16), int(main_taps))
     return out
 
 
@@ -230,11 +265,11 @@ def lp9_decimate(x: torch.Tensor, k9, *, bf16: bool = False) -> torch.Tensor:
     bf16 = bool(bf16)
     if x.device.type == "cpu":
         return lp9_decimate_plain(x, taps.reshape(9, 9), bf16)
-    ktaps = round_taps_bf16(taps) if bf16 else taps
+    ktaps, main_taps = _kernel_taps(taps.tobytes(), bf16, "lp9_decimate")
     h, w = x.shape
     out = torch.empty(((h + 1) // 2, (w + 1) // 2), dtype=x.dtype, device=x.device)
     _launch("lp9_decimate", bf16, x.device, x.data_ptr(), out.data_ptr(), h, w,
-            ktaps.ctypes.data, int(bf16))
+            ktaps.ctypes.data, int(bf16), int(main_taps))
     return out
 
 

@@ -24,7 +24,17 @@ from live_video_magnification_tpu_torch.ops.kernels import (
 pytestmark = pytest.mark.cuda
 
 LP2 = 2.0 * RIESZ_LOWPASS_9x9
-SHAPES = [(33, 257), (97, 201), (135, 241), (128, 128), (5, 5), (270, 480)]
+# conv9's and lp9_decimate's tiles (csrc/stencils.cu): the smallest sides;
+# one block of each tile (conv9 8x128 and 32x128 outputs, decimate 16x128
+# and 32x256 inputs) and one more row or column; widths of each residue mod 4
+# (16-byte rows or not), small and large enough for the tall tiles; two
+# levels of 2160x3840
+STENCIL9_SHAPES = ([(5, 9), (9, 5)]
+                   + [s for th, tw in [(8, 128), (32, 128), (16, 128), (32, 256)]
+                      for s in [(th, tw), (th + 1, tw), (th, tw + 1)]]
+                   + [(37, 200 + m) for m in range(4)] + [(545, 2048 + m) for m in range(4)]
+                   + [(544, 2048), (1088, 4096), (1089, 4097), (135, 240), (1080, 1920)])
+SHAPES = [(33, 257), (97, 201), (135, 241), (128, 128), (5, 5), (270, 480)] + STENCIL9_SHAPES
 
 
 @pytest.fixture
@@ -48,6 +58,13 @@ def _same(got, ref):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+def _bits(got, ref):
+    """Bit-equal, the sign of a zero included."""
+    _same(got, ref)
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    assert torch.equal(got.view(as_int[got.dtype]), ref.view(as_int[ref.dtype]))
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_build_stencils_equal_plain_versions(cuda, shape):
     x = _plane(shape, cuda)
@@ -60,6 +77,59 @@ def test_build_stencils_equal_plain_versions(cuda, shape):
     torch.cuda.synchronize()
     for k in ("conv9", "band5", "lp9_decimate"):
         assert stencils.LAUNCHES[k] == before[k] + 1
+
+
+ANY_TAPS_SHAPES = [(5, 9), (33, 257), (37, 202), (545, 2049), (544, 2048), (1080, 1920)]
+
+
+@pytest.mark.parametrize("shape", ANY_TAPS_SHAPES)
+def test_stencils_take_any_taps(cuda, shape):
+    """Standard-normal taps with scattered zeros, and an all-zero bank: the
+    kernel's run-time tap test, in both arms and both conv9 outputs. A band
+    of zero pixels makes signed zeros, whose signs match as well."""
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1])
+    k9 = rng.standard_normal((9, 9)).astype(np.float32)
+    k9.flat[rng.choice(81, 9, replace=False)] = 0.0
+    k9[4, 3] = 0.0
+    assert stencils.tap_pattern(k9) == "any"
+    x = _plane(shape, cuda)
+    x[:, : shape[1] // 2] = 0.0
+    before = (stencils.LAUNCHES["conv9"], stencils.LAUNCHES["lp9_decimate"])
+    for k in (k9, np.zeros((9, 9), np.float32)):
+        for bf16 in (False, True):
+            for od in ("f32", "bf16"):
+                _bits(stencils.conv9(x, k, bf16=bf16, out_dtype=od),
+                      stencils.conv9_plain(x, k, bf16, od))
+            _bits(stencils.lp9_decimate(x, k, bf16=bf16), stencils.lp9_decimate_plain(x, k, bf16))
+    torch.cuda.synchronize()
+    assert (stencils.LAUNCHES["conv9"], stencils.LAUNCHES["lp9_decimate"]) == (
+        before[0] + 4, before[1] + 2)
+
+
+@pytest.mark.parametrize("shape", [(5, 9), (37, 203), (544, 2048), (1080, 1920)])
+def test_main_path_taps_match_the_sign_of_zero(cuda, shape):
+    """HP9 (no corners) and 2*LP9 (dense) start each row sum from its first
+    product and the total from its first row, as the plain version does."""
+    x = _plane(shape, cuda)
+    x[: shape[0] // 2] = 0.0
+    for bf16 in (False, True):
+        _bits(stencils.conv9(x, RIESZ_HIGHPASS_9x9, bf16=bf16),
+              stencils.conv9_plain(x, RIESZ_HIGHPASS_9x9, bf16))
+        _bits(stencils.lp9_decimate(x, LP2, bf16=bf16), stencils.lp9_decimate_plain(x, LP2, bf16))
+
+
+@pytest.mark.parametrize("shape", [(5, 9), (37, 203), (544, 2048), (1080, 1920)])
+def test_each_others_bank_takes_the_run_time_taps(cuda, shape):
+    """2*LP9 through conv9 and HP9 through decimate: a bank with no
+    instantiation of its own, so the kernel tests its taps as it runs."""
+    x = _plane(shape, cuda)
+    x[: shape[0] // 2] = 0.0
+    for bf16 in (False, True):
+        for od in ("f32", "bf16"):
+            _bits(stencils.conv9(x, LP2, bf16=bf16, out_dtype=od),
+                  stencils.conv9_plain(x, LP2, bf16, od))
+        _bits(stencils.lp9_decimate(x, RIESZ_HIGHPASS_9x9, bf16=bf16),
+              stencils.lp9_decimate_plain(x, RIESZ_HIGHPASS_9x9, bf16))
 
 
 @pytest.mark.parametrize("small,out", [((17, 129), (33, 257)), ((49, 101), (97, 201)),
@@ -263,7 +333,7 @@ def test_build_level_equals_plain_version_and_the_three_stencils(cuda, shape, ou
 LEVEL_SHAPES = [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]
 
 
-@pytest.mark.parametrize("shape", SHAPES + LEVEL_SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + [s for s in LEVEL_SHAPES if s not in SHAPES])
 def test_bf16_stencil_arms_equal_plain_versions(cuda, shape):
     x = _plane(shape, cuda)
     before = dict(stencils.LAUNCHES_BF16)

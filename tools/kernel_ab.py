@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's stencil kernels against an earlier commit's on one
+CUDA card, and count the SASS of their CUDA kernels.
+
+    git archive <commit> | tar -x -C build/parent
+    python3 tools/kernel_ab.py build/parent [--kernels conv9,lp9_decimate] \
+        [--sass stencils:stencil9_kernel]
+
+The port under PARENT and the port of this checkout each run in a process of
+their own, in the order parent, change, change, parent. Each process times
+every kernel named in --kernels (default: all of KERNELS) at every band level
+of 2160x3840 levels=6, by CUDA events over back-to-back calls (``ms``, the
+wrapper's host cost included, as chip_smoke.py's ``ms``) and by CUDA graph
+replay (``graph_ms``, the kernel alone), with chip_smoke.py's timers of this
+checkout; and it counts the SASS opcodes (``cuobjdump -sass``, static counts)
+of every function of the built library whose name holds the text after the
+colon in --sass, with the seconds its build took. Each measurement is one JSON line tagged with its tree; the
+lines after them give, for each kernel and level, both trees' mean times and
+the ratio change / parent of the graph times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    """chip_smoke.py of this checkout (its timers), whichever tree is imported."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_timers",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cases(st, x, small, h, w):
+    """Each kernel's wrapper call on one level's planes; a new kernel is one
+    more entry."""
+    from live_video_magnification_tpu_torch.ops.kernels import (
+        LOWPASS_2X,
+        RIESZ_BAND_KERNEL,
+        RIESZ_HIGHPASS_9x9,
+    )
+
+    hp9, lp2 = RIESZ_HIGHPASS_9x9, LOWPASS_2X
+    return {
+        "conv9": lambda: st.conv9(x, hp9),
+        "conv9[bf16]": lambda: st.conv9(x, hp9, bf16=True, out_dtype="bf16"),
+        "conv9[bf16 to f32]": lambda: st.conv9(x, hp9, bf16=True),
+        "band5": lambda: st.band5(x, RIESZ_BAND_KERNEL),
+        "lp9_decimate": lambda: st.lp9_decimate(x, lp2),
+        "lp9_decimate[bf16]": lambda: st.lp9_decimate(x, lp2, bf16=True),
+        "lp9_inject": lambda: st.lp9_inject(small, lp2, (h, w)),
+    }
+
+
+KERNELS = ("conv9", "conv9[bf16]", "conv9[bf16 to f32]", "band5", "lp9_decimate",
+           "lp9_decimate[bf16]", "lp9_inject")
+
+
+def sass_counts(lib, name: str) -> list:
+    """Static SASS opcode counts of each function of a built library whose
+    mangled name holds ``name``: every opcode, and the totals of the f32,
+    predicate and memory classes a stencil's cost is made of."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        fn = re.match(r"\s*Function : (\S+)", line)
+        if fn:
+            cur = fn.group(1) if name in fn.group(1) else None
+            if cur:
+                funcs[cur] = {}
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur and op:
+            funcs[cur][op.group(1)] = funcs[cur].get(op.group(1), 0) + 1
+    if not funcs:
+        raise AssertionError(f"no function named like {name} in {lib}")
+    names = list(funcs)
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    try:
+        shown = subprocess.run([filt, *names], capture_output=True, text=True, check=True,
+                               timeout=60).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        shown = names
+    rows = []
+    for mangled, demangled in zip(names, shown):
+        ops = funcs[mangled]
+        base = lambda p: sum(v for k, v in ops.items() if k.split(".")[0] == p)
+        rows.append(dict(function=demangled, total=sum(ops.values()),
+                         **{p: base(p) for p in ("FMUL", "FADD", "FFMA", "FSETP", "FSEL",
+                                                 "LDS", "STS", "LDG", "STG", "BRA")},
+                         LDS_128=ops.get("LDS.128", 0),
+                         LDG_128=ops.get("LDG.E.128", 0) + ops.get("LDG.E.128.CONSTANT", 0),
+                         opcodes=ops))
+    return rows
+
+
+def report(tree: str, kernels, sass: str) -> int:
+    """The measurements of the port importable from the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+    from live_video_magnification_tpu_torch.ops.hopper import _build
+    from live_video_magnification_tpu_torch.ops.hopper import stencils as st
+    from live_video_magnification_tpu_torch.ops.riesz import riesz_level_sizes
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    smoke = _smoke()
+    dev = torch.device("cuda", 0)
+    if sass:
+        source, name = sass.split(":", 1)
+        fresh = not _build.library_path(source).exists()
+        t0 = time.perf_counter()
+        lib = _build.build([source])[source]
+        smoke.log(phase="build", tree=tree, source=source, compiled_now=fresh,
+                  seconds=time.perf_counter() - t0)
+        for row in sass_counts(lib, name):
+            smoke.log(phase="sass", tree=tree, **row)
+    rng = np.random.default_rng(smoke.SEED + 9)
+    sizes = riesz_level_sizes(2160, 3840, 6)
+    for lvl, (h, w) in enumerate(sizes[:-1]):
+        x = torch.from_numpy(rng.random((h, w), dtype=np.float32) * 100.0).to(dev)
+        small = torch.from_numpy(rng.random(sizes[lvl + 1], dtype=np.float32) * 100.0).to(dev)
+        cases = _cases(st, x, small, h, w)
+        iters = 50 if lvl == 0 else 200
+        for k in kernels:
+            smoke.log(phase="time", tree=tree, kernel=k, level=lvl, shape=[h, w],
+                      ms=smoke.cuda_ms(cases[k], iters), graph_ms=smoke.graph_ms(cases[k], iters))
+    return 0
+
+
+def summary(lines) -> None:
+    """Each kernel's and level's mean times by tree and the graph ratio."""
+    runs = {}
+    for r in lines:
+        if r.get("phase") == "time":
+            runs.setdefault((r["kernel"], r["level"]), {}).setdefault(r["tree"], []).append(r)
+    for (k, lvl), by_tree in runs.items():
+        mean = {t: {m: float(np.mean([r[m] for r in rs])) for m in ("ms", "graph_ms")}
+                for t, rs in by_tree.items()}
+        print(json.dumps(dict(phase="summary", kernel=k, level=lvl, **mean,
+                              graph_ratio=mean["change"]["graph_ms"]
+                              / mean["parent"]["graph_ms"])), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("parent", nargs="?", help="a copy of an earlier commit's tree")
+    ap.add_argument("--kernels", default=",".join(KERNELS))
+    ap.add_argument("--sass", default="stencils:stencil9_kernel",
+                    help="source:function-name text; empty for none")
+    ap.add_argument("--report", metavar="TREE", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    if args.report:
+        return report(args.report, kernels, args.sass)
+    if not args.parent:
+        ap.error("give the parent tree")
+    lines = []
+    parent = os.path.abspath(args.parent)
+    for tree, root in (("parent", parent), ("change", HERE), ("change", HERE),
+                       ("parent", parent)):
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--report", tree,
+                              "--kernels", args.kernels, "--sass", args.sass],
+                             cwd=root, capture_output=True, text=True, timeout=900)
+        sys.stderr.write(out.stderr)
+        if out.returncode:
+            print(out.stdout, end="")
+            return out.returncode
+        print(out.stdout, end="", flush=True)
+        lines += [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+    summary(lines)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
