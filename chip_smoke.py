@@ -7,7 +7,7 @@ plain versions.
 Run from the root of a checkout on a machine with a CUDA card (it needs one;
 without it, or without the port's package beside it, it exits non-zero and
 prints no result). It builds the port's CUDA kernels from the sources in the
-checkout, then:
+checkout (making the 4K slice's frames on the host meanwhile), then:
 
   1. kernels: each stencil kernel (ops/hopper/stencils.py) against its plain
      PyTorch version on the card, at odd shapes, at every level shape of a
@@ -21,7 +21,10 @@ checkout, then:
   2. tail kernels (ops/hopper/tail.py): each entry point against its plain
      version on standard-normal inputs at odd shapes and at every active
      level of the 4K frame, both preweighted and both rebuild arms, within
-     the stated bars; times, bounds and shares at each active level;
+     the stated bars; the amplify kernel's f32 arms (both entry points)
+     equal to the plain version bit for bit at every shape of
+     tail.amplify13_shapes(); times by events and by graph replay, bounds,
+     shares and (amplify) the exactness floor at each active level;
   3. slice at 4K: 2160x3840, levels=6, phase mode, jnp tail, through
      MagnificationChain.process (HWC u8) and ClipProcessor.process_chunk on the
      same frames; outputs bit-equal, launch counts per frame as expected,
@@ -41,9 +44,10 @@ checkout, then:
   6. the fused build (K5, riesz_build_level) against its plain version at odd
      shapes, 68x120 and every 4K band level, timed beside K1+K2+K3 at the
      same shape; every bf16 arm of K1-K4 and K6 against its plain version
-     (the 9x9 arms also at every edge of their tiles), timed as in 1. at
-     every 4K level with a cuDNN bf16 conv2d where one computes the same
-     function;
+     (the 9x9 arms also at every edge of their tiles, the amplify kernel's
+     fourteen other instantiations bit for bit at every shape of
+     tail.amplify13_shapes()), timed as in 1. at every 4K level with a cuDNN
+     bf16 conv2d where one computes the same function;
   7. the column halo exchange (K10, ops/hopper/halo.py) against its plain
      version, bit for bit, for 1, 2, 4 and 8 shards on the card, halos 2, 4
      and 6, both right modes, with and without a leading stack of 6 planes,
@@ -62,6 +66,7 @@ The second-to-last line is {"kernels": [...]}; the last line is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
 import json
@@ -75,9 +80,10 @@ import numpy as np
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3, data sheet, at 700 W
 PEAK_F32_OPS_PER_S = 67e12   # H100 SXM f32 outside the tensor cores, FMA = 2 ops
 PEAK_BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate, f32 accumulation
-# The 9x9 stencils round every product and every sum on its own (__fmul_rn,
-# __fadd_rn: never fused), so each used tap costs two f32 instructions, at
-# most one a lane a cycle: 132 SMs x 128 f32 lanes x 1.98 GHz (H100 SXM boost).
+# The kernels held bit for bit to their plain versions round every product
+# and every sum on its own (__fmul_rn, __fadd_rn: never fused), so each is
+# one f32 instruction at least, at most one a lane a cycle: 132 SMs x 128 f32
+# lanes x 1.98 GHz (H100 SXM boost). A 9x9 stencil's used tap is two of them.
 EXACT_F32_OPS_PER_S = 132 * 128 * 1.98e9
 SEED = 20261016
 REPLACES = {
@@ -120,6 +126,10 @@ TAIL_KERNELS = ("phase_df2_kernel", "amplify13_kernel", "level_tail_kernel")  # 
 TAIL_OPS_PER_PIXEL = {"riesz_phase_df2_fused": 94, "riesz_amplify_fused": 171,
                       "riesz_amplify_mxu": 171, "riesz_level_mxu": 261}
 TAIL_BLUR_OPS_PER_PIXEL = 150  # of K6's 171: the ones on bf16 operands in its bf16 arm
+# The bf16 arm's blur products are exact (bf16 operands), so each tap is one
+# fused multiply-add with the same bits: 6 sums of 13 taps, 78 instructions
+# for the 150 operations; its exactness floor counts those.
+TAIL_BF16_BLUR_INSTRUCTIONS = 6 * 13
 # planes read + written, each once (rebuild off: the prior pyramid and state are read)
 TAIL_PLANES = {"riesz_phase_df2_fused": 18 + 15, "riesz_amplify_fused": 6 + 1,
                "riesz_amplify_mxu": 6 + 1, "riesz_level_mxu": 16 + 11}
@@ -203,10 +213,12 @@ def graph_ms(fn, iters: int, replays: int = 3) -> float:
     return start.elapsed_time(stop) / (replays * iters)
 
 
-def exact_floor_ms(taps, outputs: int) -> float:
-    """The least time of a 9x9 stencil that rounds each product and sum on its
-    own: two f32 instructions per used tap and output."""
-    return 2 * int(np.count_nonzero(taps)) * outputs / EXACT_F32_OPS_PER_S * 1e3
+def exact_floor_ms(instructions: int) -> float:
+    """The least time of f32 instructions that may not be fused (every product
+    and sum rounded on its own), at EXACT_F32_OPS_PER_S: a 9x9 stencil's
+    2 x used taps an output; the amplify kernel's TAIL_OPS_PER_PIXEL (its
+    bf16 arm's blurs TAIL_BF16_BLUR_INSTRUCTIONS)."""
+    return instructions / EXACT_F32_OPS_PER_S * 1e3
 
 
 def stencil9_shapes():
@@ -349,7 +361,7 @@ def time_phase(dev, st, sizes):
                            lambda: st.lp9_inject_plain(small, LOWPASS_2X, (h, w)), None,
                            (shw + hw) * f4, 2 * 81 * hw // 4),
         }
-        floors = {"conv9": (RIESZ_HIGHPASS_9x9, hw), "lp9_decimate": (LOWPASS_2X, oh * ow)}
+        floors = {"conv9": 2 * nnz(RIESZ_HIGHPASS_9x9) * hw, "lp9_decimate": 2 * 81 * oh * ow}
         iters = 50 if lvl == 0 else 200
         for name, (kernel, plain, lib_in, nbytes, ops) in specs.items():
             ms = cuda_ms(kernel, iters)
@@ -368,7 +380,7 @@ def time_phase(dev, st, sizes):
                              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                              bytes=nbytes, operations=ops))
             if name in floors:
-                rows[-1]["exact_floor_ms"] = exact_floor_ms(*floors[name])
+                rows[-1]["exact_floor_ms"] = exact_floor_ms(floors[name])
             log(phase="kernel_time", **rows[-1])
     return rows
 
@@ -508,12 +520,60 @@ def tail_kernel_check(dev, tl, sizes):
             max_abs_err={p: v[0] for p, v in worst.items()},
             max_share_of_bar={p: v[1] for p, v in worst.items()},
             bars={p: {"atol": a, "rtol": r} for p, (a, r) in TAIL_BARS[entry].items()})
+    amplify_exact(dev, tl, [(e, pw, "f32", "f32", False) for e in ("riesz_amplify_fused",
+                                                                  "riesz_amplify_mxu")
+                            for pw in (False, True)], SEED + 10)
     return errs
 
 
+def amplify_exact(dev, tl, arms, seed):
+    """The amplify kernel against its plain version bit for bit at every shape
+    of tail.amplify13_shapes(): max |kernel - plain| 0 and NaN where the plain
+    version has NaN (a zero-amplitude patch wider than the blur makes some;
+    another patch takes the planes down to subnormal values).
+    ``arms``: (entry point, preweighted, amplitude/change dtype,
+    lowpass/Riesz dtype, bf16 operands)."""
+    import torch
+
+    dtypes = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rng = np.random.default_rng(seed)
+    shapes = tl.amplify13_shapes()
+    nans = 0
+    for shape in shapes:
+        six = [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev)
+               for _ in range(6)]
+        six[0] = six[0].abs()
+        if min(shape) > 20:
+            six[0][3:18, 5:20] = 0.0
+        if min(shape) > 40:  # subnormal operands (the bf16 arm's exact products)
+            for x in six[:3]:
+                x[20:34, 24:40] *= 1e-38
+        for entry, pw, tb, te, bf16 in arms:
+            planes = list(six)
+            if pw:
+                planes[1], planes[2] = planes[1] * planes[0], planes[2] * planes[0]
+            ins = [x.to(dtypes[tb]) for x in planes[:3]] + [x.to(dtypes[te]) for x in planes[3:]]
+            kw = {"bf16": True} if bf16 else {}
+            got = getattr(tl, entry)(*ins, 50.0, 1.2, preweighted=pw, **kw)
+            ref = tl.riesz_amplify_plain(*ins, 50.0, 1.2, preweighted=pw, bf16=bf16)
+            torch.cuda.synchronize()
+            nan_got, nan_ref = torch.isnan(got), torch.isnan(ref)
+            both = ~(nan_got | nan_ref)
+            err = float((got - ref).abs()[both].max()) if bool(both.any()) else 0.0
+            nan_off = int((nan_got != nan_ref).sum())
+            if err != 0.0 or nan_off:
+                raise AssertionError(f"{entry} at {shape} (preweighted {pw}, {tb}/{te}, bf16 "
+                                     f"{bf16}): max |kernel - plain| {err}, {nan_off} pixels "
+                                     f"NaN in one only")
+            nans += int(nan_ref.sum())
+    log(phase="amplify13_exact", arms=[list(a) for a in arms], shapes=[list(s) for s in shapes],
+        max_abs_err=0.0, nan_mismatches=0, nan_outputs=nans, tolerance="bit for bit")
+
+
 def tail_kernel_time(dev, tl, sizes):
-    """ms of each tail entry point and of its plain version at every active
-    4K level, with the bound from this run's shapes."""
+    """ms of each tail entry point (by events and by graph replay) and of its
+    plain version at every active 4K level, with the bound from this run's
+    shapes and, for the amplify kernel, its exactness floor."""
     rng = np.random.default_rng(SEED + 4)
     coeffs = tail_coeffs()
     rows = []
@@ -528,11 +588,14 @@ def tail_kernel_time(dev, tl, sizes):
             ops = TAIL_OPS_PER_PIXEL[entry] * h * w
             bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
             ops_ms = ops / PEAK_F32_OPS_PER_S * 1e3
-            rows.append(dict(kernel=entry, level=lvl, shape=[h, w], ms=ms, plain_ms=plain_ms,
-                             library_ms=None, bound_ms=max(bytes_ms, ops_ms),
+            rows.append(dict(kernel=entry, level=lvl, shape=[h, w], ms=ms,
+                             graph_ms=graph_ms(lambda: kernel(*args, **kw), iters),
+                             plain_ms=plain_ms, library_ms=None, bound_ms=max(bytes_ms, ops_ms),
                              bound_share=max(bytes_ms, ops_ms) / ms,
                              bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                              bytes=nbytes, operations=ops))
+            if "amplify" in entry:
+                rows[-1]["exact_floor_ms"] = exact_floor_ms(ops)
             log(phase="tail_kernel_time", **rows[-1])
     return rows
 
@@ -621,16 +684,22 @@ def run_chain(torch, dev, frames, cfg, modules):
     return torch.stack(outs).cpu().numpy(), step_s, launches, peak, chain
 
 
-def slice_4k(torch, dev, st, tl, h=2160, w=3840, t=8):
-    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+def frames_4k(h=2160, w=3840, t=8):
+    """The 4K slice's synthetic clip, [t, h, w, 3] u8 on the host."""
     from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
 
-    levels = 6
-    cfg = cfg_4k(levels)
     t0 = time.perf_counter()
     frames = moving_clip(t, h, w, seed=SEED)
     log(phase="slice_4k_frames", seconds=time.perf_counter() - t0, shape=list(frames.shape))
+    return frames
 
+
+def slice_4k(torch, dev, st, tl, frames):
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+
+    t, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    levels = 6
+    cfg = cfg_4k(levels)
     with flag_env({}):
         chain_out, step_s, launches, peak, chain = run_chain(torch, dev, frames, cfg, (st, tl))
         expected = expected_counts(t, {}, st, tl)
@@ -869,6 +938,7 @@ def build_kernel_time(dev, st, sizes):
         hp = st.conv9(x, RIESZ_HIGHPASS_9x9)
         iters = 50 if h * w > 4e6 else 200
         ms = cuda_ms(lambda: st.riesz_build_level(x), iters)
+        build_graph_ms = graph_ms(lambda: st.riesz_build_level(x), iters)
         plain_ms = cuda_ms(lambda: st.riesz_build_level_plain(x), max(5, iters // 10), warmup=1)
         three = {"conv9": cuda_ms(lambda: st.conv9(x, RIESZ_HIGHPASS_9x9), iters),
                  "band5": cuda_ms(lambda: st.band5(hp, RIESZ_BAND_KERNEL), iters),
@@ -880,8 +950,8 @@ def build_kernel_time(dev, st, sizes):
         bound_ms, bound_by = bound(nbytes, ops)
         rows.append(dict(kernel="riesz_build_level", level=lvl, shape=[h, w],
                          grid="1080p" if (h, w) == (68, 120) else "4K", ms=ms,
-                         plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
-                         bound_share=bound_ms / ms, bound_by=bound_by, bytes=nbytes,
+                         graph_ms=build_graph_ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=bound_ms, bound_share=bound_ms / ms, bound_by=bound_by, bytes=nbytes,
                          operations=ops, k1_k2_k3_ms=three,
                          k1_k2_k3_sum_ms=sum(three.values())))
         log(phase="build_kernel_time", **rows[-1])
@@ -964,6 +1034,10 @@ def bf16_kernel_check(dev, st, tl, sizes):
         checked = shapes + [s for s, _, only in runs if only and name in only]
         log(phase="bf16_kernel_check", kernel=name, shapes=[list(s) for s in checked],
             max_abs_err=err, tolerance="1e-06 x max(1, max|plain|)")
+    amplify_exact(dev, tl, [("riesz_amplify_mxu", pw, tb, te, b) for pw in (False, True)
+                            for tb in ("f32", "bf16") for te in ("f32", "bf16")
+                            for b in (False, True) if (tb, te, b) != ("f32", "f32", False)],
+                  SEED + 11)
     return worst
 
 
@@ -1020,8 +1094,9 @@ def bf16_kernel_time(dev, st, tl, sizes):
             "lp9_inject[bf16]": (4 * (shw + hw), 0, 2 * 81 * hw // 4),
             "riesz_amplify_mxu[bf16]": ((6 * 2 + 4) * hw, k6_ops - k6_bf16, k6_bf16),
         }
-        floors = {"conv9[bf16]": (RIESZ_HIGHPASS_9x9, hw),
-                  "lp9_decimate[bf16]": (LOWPASS_2X, oh * ow)}
+        floors = {"conv9[bf16]": 2 * nnz(RIESZ_HIGHPASS_9x9) * hw,
+                  "lp9_decimate[bf16]": 2 * 81 * oh * ow,
+                  "riesz_amplify_mxu[bf16]": k6_ops - k6_bf16 + TAIL_BF16_BLUR_INSTRUCTIONS * hw}
         iters = 50 if lvl == 0 else 200
         for name in BF16_REPLACES:
             kernel, plain = cases[name]
@@ -1041,7 +1116,7 @@ def bf16_kernel_time(dev, st, tl, sizes):
                              bound_ms=bound_ms, bound_share=bound_ms / ms, bound_by=bound_by,
                              bytes=nbytes, operations=ops, bf16_operations=bf16_ops))
             if name in floors:
-                rows[-1]["exact_floor_ms"] = exact_floor_ms(*floors[name])
+                rows[-1]["exact_floor_ms"] = exact_floor_ms(floors[name])
             log(phase="bf16_kernel_time", **rows[-1])
     return rows
 
@@ -1299,9 +1374,16 @@ def main() -> int:
         cuda=torch.version.cuda, python=sys.version.split()[0])
 
     fresh = not all(_build.library_path(n).exists() for n in _build.SOURCES)
-    t0 = time.perf_counter()
-    paths = _build.build()
-    build_s = time.perf_counter() - t0
+
+    def build():
+        t0 = time.perf_counter()
+        return _build.build(), time.perf_counter() - t0
+
+    # nvcc runs in processes of its own: the host makes the 4K clip meanwhile
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(build)
+        frames = frames_4k()
+        paths, build_s = building.result()
     ptxas = [ln.strip() for p in paths.values() for ln in p.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     log(phase="build", seconds=build_s, compiled_now=fresh, libraries=[p.name for p in paths.values()], ptxas=ptxas)
@@ -1318,7 +1400,7 @@ def main() -> int:
     plan4k = make_plan(2160, 3840, 6, 4)
     halo_err = halo_kernel_check(dev, hl, plan4k)
     halo_times, halo_frame = halo_kernel_time(dev, hl, plan4k)
-    launches, frames, jnp_out = slice_4k(torch, dev, st, tl)
+    launches, frames, jnp_out = slice_4k(torch, dev, st, tl, frames)
     runs = slice_4k_tails(torch, dev, st, tl, frames, jnp_out)
     del frames, jnp_out
     flagship = slice_card_vs_cpu(torch, dev, st, tl, "jnp")
@@ -1329,6 +1411,7 @@ def main() -> int:
     path = lambda name: " ".join(f"{k}={v}" for k, v in CONFIGS[name][0].items()) or "defaults"
     level0 = lambda rows, k: next(r for r in rows if r["kernel"] == k and r["level"] == 0
                                   and r.get("grid", "4K") == "4K")
+    floor = lambda row: {k: row[k] for k in ("exact_floor_ms",) if k in row}
     kernels = []
     for k in PER_FRAME:
         top = level0(times, k)
@@ -1337,9 +1420,7 @@ def main() -> int:
                             ms=top["ms"], graph_ms=top["graph_ms"],
                             plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                             bound_by=top["bound_by"], library_ms=top["library_ms"],
-                            shape=top["shape"],
-                            **({"exact_floor_ms": top["exact_floor_ms"]}
-                               if "exact_floor_ms" in top else {})))
+                            shape=top["shape"], **floor(top)))
     for k in TAIL_REPLACES:
         top = level0(tail_times, k)
         launched = runs[TAIL_MAIN_PATH[k]][k]
@@ -1347,9 +1428,10 @@ def main() -> int:
             raise AssertionError(f"{k} was not launched on its path")
         kernels.append(dict(name=k, route="cuda", source=TAIL_SOURCE, replaces=TAIL_REPLACES[k],
                             launches=launched, path=path(TAIL_MAIN_PATH[k]),
-                            max_abs_err=tail_errs[k], ms=top["ms"], plain_ms=top["plain_ms"],
-                            bound_ms=top["bound_ms"], bound_by=top["bound_by"],
-                            library_ms=None, shape=top["shape"]))
+                            max_abs_err=tail_errs[k], ms=top["ms"], graph_ms=top["graph_ms"],
+                            plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                            bound_by=top["bound_by"], library_ms=None, shape=top["shape"],
+                            **floor(top)))
     # K5's numbers at 68x120, the shape of the 1080p default path whose
     # launches are shown; the 4K fused route's level 0 beside them
     top = next(r for r in build_times if r["grid"] == "1080p")
@@ -1359,14 +1441,15 @@ def main() -> int:
     kernels.append(dict(name="riesz_build_level", route="cuda", source=SOURCE,
                         replaces=BUILD_REPLACES, launches=flagship["riesz_build_level"],
                         path="1080p levels=6, defaults (level 4, 68x120)",
-                        max_abs_err=build_err, ms=top["ms"], plain_ms=top["plain_ms"],
-                        bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
+                        max_abs_err=build_err, ms=top["ms"], graph_ms=top["graph_ms"],
+                        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+                        bound_by=top["bound_by"], library_ms=None,
                         shape=top["shape"], k1_k2_k3_sum_ms=top["k1_k2_k3_sum_ms"],
                         fused_4k=dict(path=path("fused"),
                                       launches=runs["fused"]["riesz_build_level"],
                                       shape=top4k["shape"], ms=top4k["ms"],
-                                      plain_ms=top4k["plain_ms"], bound_ms=top4k["bound_ms"],
-                                      bound_by=top4k["bound_by"],
+                                      graph_ms=top4k["graph_ms"], plain_ms=top4k["plain_ms"],
+                                      bound_ms=top4k["bound_ms"], bound_by=top4k["bound_by"],
                                       k1_k2_k3_sum_ms=top4k["k1_k2_k3_sum_ms"])))
     for k, replaces in BF16_REPLACES.items():
         top = level0(bf16_times, k)
@@ -1380,8 +1463,7 @@ def main() -> int:
                             graph_ms=top["graph_ms"], plain_ms=top["plain_ms"],
                             bound_ms=top["bound_ms"], bound_by=top["bound_by"],
                             library_ms=top["library_ms"], shape=top["shape"],
-                            **({"exact_floor_ms": top["exact_floor_ms"]}
-                               if "exact_floor_ms" in top else {})))
+                            **floor(top)))
     # K10 at the largest exchange of the 4K sharded frame (the tail's 6-plane
     # stack at level 0, halo 6) with its frame's sums beside it
     top = max(halo_times, key=lambda r: r["bytes"])

@@ -62,6 +62,7 @@ from live_video_magnification_tpu_torch.ops.riesz import (
     amplitude_blur,
     phase_difference_and_amplitude,
     polynomial_arccos,
+    riesz_level_sizes,
 )
 from live_video_magnification_tpu_torch.ops.temporal import CompExp, riesz_df2_step
 
@@ -70,6 +71,24 @@ LAUNCHES = {"riesz_phase_df2_fused": 0, "riesz_amplify_fused": 0,
 LAUNCHES_BF16 = {"riesz_amplify_mxu": 0}
 
 MIN_SIDE = 16
+
+# amplify13_kernel's block tile in outputs (rows, columns): AMP_TH and AMP_TW
+# of csrc/tail.cu. It stages its planes in 16-byte chunks: 4 f32 or 8 bf16.
+AMPLIFY_TILE = (32, 64)
+
+
+def amplify13_shapes():
+    """Shapes that reach every edge of amplify13_kernel's tile: sides under
+    the 13-tap blur's reach (mirrored periodically, down to 1x1) and 16x16;
+    one tile, one tile plus a row or a column, two tiles each way and one
+    more; a width of every residue mod 8 (16-byte rows of f32 and bf16
+    planes or not); odd shapes; the five band levels of 2160x3840."""
+    th, tw = AMPLIFY_TILE
+    shapes = [(1, 1), (2, 5), (5, 2), (6, 7), (3, 40), (40, 6), (16, 16)]
+    shapes += [(th, tw), (th + 1, tw), (th, tw + 1), (2 * th, 2 * tw), (2 * th + 1, 2 * tw + 1)]
+    shapes += [(70, 2 * tw + m) for m in range(8)]
+    shapes += [(97, 201), (135, 241)]
+    return shapes + [tuple(s) for s in riesz_level_sizes(2160, 3840, 6)[:-1]]
 
 _TAPS13 = np.ascontiguousarray(np.asarray(AMPLITUDE_BLUR_KERNEL_1D, np.float32))
 _TAPS13_BF16 = np.ascontiguousarray(round_taps_bf16(_TAPS13))

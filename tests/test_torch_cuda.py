@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from live_video_magnification_tpu_torch.ops.hopper import stencils
+from live_video_magnification_tpu_torch.ops.hopper.tail import amplify13_shapes
 from live_video_magnification_tpu_torch.ops.kernels import (
     RIESZ_BAND_KERNEL,
     RIESZ_HIGHPASS_9x9,
@@ -384,6 +385,69 @@ def test_amplify_mxu_fast_arms_equal_plain_versions(cuda, shape, preweighted):
                 n += bf16
     torch.cuda.synchronize()
     assert tail.LAUNCHES_BF16["riesz_amplify_mxu"] == before["riesz_amplify_mxu"] + n
+
+
+def _amplify_planes(shape, dev):
+    """Standard-normal planes, the amplitude a magnitude, zero on a patch
+    wider than the blur's reach where the shape allows (some outputs NaN),
+    and on another the amplitude and change down in the subnormal range
+    (products of subnormal bf16 operands in the bf16 arm)."""
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1] + 11)
+    planes = [rng.standard_normal(shape, dtype=np.float32) for _ in range(6)]
+    planes[0] = np.abs(planes[0])
+    if min(shape) > 20:
+        planes[0][3:18, 5:20] = 0.0
+    if min(shape) > 40:
+        for x in planes[:3]:
+            x[20:34, 24:40] *= np.float32(1e-38)
+    return [torch.from_numpy(x).to(dev) for x in planes]
+
+
+def _misaligned(x):
+    """A contiguous copy of x one element past an aligned start: the kernel's
+    unaligned staging, load and store paths."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", amplify13_shapes())
+def test_amplify13_instantiations_equal_plain_versions_bit_for_bit(cuda, shape, offset):
+    """Each of the sixteen amplify13 instantiations (preweighted x amplitude /
+    change dtype x lowpass / Riesz dtype x bf16 operands), through
+    riesz_amplify_mxu and, on f32 planes, riesz_amplify_fused: max |kernel -
+    plain| 0, NaN where the plain version has NaN."""
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+
+    planes = _amplify_planes(shape, cuda)
+    counts = lambda: (tail.LAUNCHES["riesz_amplify_mxu"] + tail.LAUNCHES["riesz_amplify_fused"]
+                      + tail.LAUNCHES_BF16["riesz_amplify_mxu"])
+    before = counts()
+    for preweighted in (False, True):
+        f32 = list(planes)
+        if preweighted:
+            f32[1], f32[2] = f32[1] * f32[0], f32[2] * f32[0]
+        for blur_dt in (torch.float32, torch.bfloat16):
+            for ew_dt in (torch.float32, torch.bfloat16):
+                ins = [p.to(blur_dt) for p in f32[:3]] + [p.to(ew_dt) for p in f32[3:]]
+                if offset:
+                    ins = [_misaligned(p) for p in ins]
+                for bf16 in (False, True):
+                    runs = [(tail.riesz_amplify_mxu, {"bf16": bf16})]
+                    if blur_dt == ew_dt == torch.float32 and not bf16:
+                        runs.append((tail.riesz_amplify_fused, {}))
+                    for entry, kw in runs:
+                        got = entry(*ins, 30.0, 1.2, preweighted=preweighted, **kw)
+                        ref = tail.riesz_amplify_plain(*ins, 30.0, 1.2, preweighted=preweighted,
+                                                       bf16=bf16)
+                        torch.testing.assert_close(
+                            got, ref, rtol=0, atol=0, equal_nan=True,
+                            msg=lambda m: f"{entry.__name__} preweighted={preweighted} "
+                                          f"{blur_dt}/{ew_dt} bf16={bf16}: {m}")
+    torch.cuda.synchronize()
+    assert counts() == before + 16 + 2
 
 
 def test_build_and_bf16_arms_never_take_the_plain_version(cuda, monkeypatch):

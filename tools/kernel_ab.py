@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's stencil kernels against an earlier commit's on one
-CUDA card, and count the SASS of their CUDA kernels.
+"""Time the PyTorch port's stencil and tail kernels against an earlier
+commit's on one CUDA card, and count the SASS of their CUDA kernels.
 
     git archive <commit> | tar -x -C build/parent
     python3 tools/kernel_ab.py build/parent [--kernels conv9,lp9_decimate] \
         [--sass stencils:stencil9_kernel]
+    python3 tools/kernel_ab.py build/parent --sass tail:amplify13_kernel \
+        --kernels riesz_amplify_mxu,riesz_amplify_fused[preweighted],riesz_amplify_mxu[fast],riesz_level_mxu
 
 The port under PARENT and the port of this checkout each run in a process of
 their own, in the order parent, change, change, parent. Each process times
@@ -45,16 +47,26 @@ def _smoke():
     return mod
 
 
-def _cases(st, x, small, h, w):
+def _cases(st, tl, x, small, tail_planes, h, w):
     """Each kernel's wrapper call on one level's planes; a new kernel is one
-    more entry."""
+    more entry. The tail kernels run on standard-normal planes (the amplitude
+    a magnitude): K6 with f32 planes, K7 preweighted (the phase_fused+pallas
+    call), K6's fast arm (bf16 planes and operands) and K9, the whole level
+    tail, as a control."""
+    import torch
     from live_video_magnification_tpu_torch.ops.kernels import (
         LOWPASS_2X,
         RIESZ_BAND_KERNEL,
         RIESZ_HIGHPASS_9x9,
     )
+    from live_video_magnification_tpu_torch.ops.temporal import butterworth_bandpass_coeffs
 
     hp9, lp2 = RIESZ_HIGHPASS_9x9, LOWPASS_2X
+    six = tail_planes[:6]
+    weighted = six[:1] + [c * six[0] for c in six[1:3]] + six[3:]
+    fast = [p.to(torch.bfloat16) for p in six]
+    coeffs = [c for band in (1.0, 5.0) for c in butterworth_bandpass_coeffs(band, 30.0)]
+    q = tail_planes  # K9's 16 planes
     return {
         "conv9": lambda: st.conv9(x, hp9),
         "conv9[bf16]": lambda: st.conv9(x, hp9, bf16=True, out_dtype="bf16"),
@@ -63,17 +75,26 @@ def _cases(st, x, small, h, w):
         "lp9_decimate": lambda: st.lp9_decimate(x, lp2),
         "lp9_decimate[bf16]": lambda: st.lp9_decimate(x, lp2, bf16=True),
         "lp9_inject": lambda: st.lp9_inject(small, lp2, (h, w)),
+        "riesz_amplify_mxu": lambda: tl.riesz_amplify_mxu(*six, 50.0, 1.2),
+        "riesz_amplify_fused[preweighted]":
+            lambda: tl.riesz_amplify_fused(*weighted, 50.0, 1.2, preweighted=True),
+        "riesz_amplify_mxu[fast]": lambda: tl.riesz_amplify_mxu(*fast, 50.0, 1.2, bf16=True),
+        "riesz_level_mxu": lambda: tl.riesz_level_mxu(*q[:6], tuple(q[6:8]), tuple(q[8:12]),
+                                                      tuple(q[12:16]), *coeffs, False, 50.0,
+                                                      1.2),
     }
 
 
 KERNELS = ("conv9", "conv9[bf16]", "conv9[bf16 to f32]", "band5", "lp9_decimate",
-           "lp9_decimate[bf16]", "lp9_inject")
+           "lp9_decimate[bf16]", "lp9_inject", "riesz_amplify_mxu",
+           "riesz_amplify_fused[preweighted]", "riesz_amplify_mxu[fast]", "riesz_level_mxu")
 
 
 def sass_counts(lib, name: str) -> list:
     """Static SASS opcode counts of each function of a built library whose
     mangled name holds ``name``: every opcode, and the totals of the f32,
-    predicate and memory classes a stencil's cost is made of."""
+    special-function, predicate and memory classes a kernel's cost is made
+    of."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
@@ -102,8 +123,8 @@ def sass_counts(lib, name: str) -> list:
         ops = funcs[mangled]
         base = lambda p: sum(v for k, v in ops.items() if k.split(".")[0] == p)
         rows.append(dict(function=demangled, total=sum(ops.values()),
-                         **{p: base(p) for p in ("FMUL", "FADD", "FFMA", "FSETP", "FSEL",
-                                                 "LDS", "STS", "LDG", "STG", "BRA")},
+                         **{p: base(p) for p in ("FMUL", "FADD", "FFMA", "MUFU", "FSETP",
+                                                 "FSEL", "LDS", "STS", "LDG", "STG", "BRA")},
                          LDS_128=ops.get("LDS.128", 0),
                          LDG_128=ops.get("LDG.E.128", 0) + ops.get("LDG.E.128.CONSTANT", 0),
                          opcodes=ops))
@@ -116,6 +137,7 @@ def report(tree: str, kernels, sass: str) -> int:
     import torch
     from live_video_magnification_tpu_torch.ops.hopper import _build
     from live_video_magnification_tpu_torch.ops.hopper import stencils as st
+    from live_video_magnification_tpu_torch.ops.hopper import tail as tl
     from live_video_magnification_tpu_torch.ops.riesz import riesz_level_sizes
 
     if not torch.cuda.is_available():
@@ -137,7 +159,10 @@ def report(tree: str, kernels, sass: str) -> int:
     for lvl, (h, w) in enumerate(sizes[:-1]):
         x = torch.from_numpy(rng.random((h, w), dtype=np.float32) * 100.0).to(dev)
         small = torch.from_numpy(rng.random(sizes[lvl + 1], dtype=np.float32) * 100.0).to(dev)
-        cases = _cases(st, x, small, h, w)
+        tail_planes = [torch.from_numpy(rng.standard_normal((h, w), dtype=np.float32)).to(dev)
+                       for _ in range(16)]
+        tail_planes[0] = tail_planes[0].abs()
+        cases = _cases(st, tl, x, small, tail_planes, h, w)
         iters = 50 if lvl == 0 else 200
         for k in kernels:
             smoke.log(phase="time", tree=tree, kernel=k, level=lvl, shape=[h, w],
