@@ -11,13 +11,14 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
 
   1. kernels: each stencil kernel (ops/hopper/stencils.py) against its plain
      PyTorch version on the card, at odd shapes, at every level shape of a
-     2160x3840 levels=6 frame and (conv9, lp9_decimate) at every edge of
-     their tiles and with random taps; times by CUDA events over back-to-back
-     calls, the wrapper's host cost included (``ms``: kernel, plain version,
+     2160x3840 levels=6 frame and (conv9, lp9_decimate, lp9_inject) at every
+     edge of their tiles and with random taps; times by CUDA events over
+     back-to-back calls, the wrapper's host cost included (``ms``: kernel, plain version,
      one PyTorch library call where one computes the same function), and the
      kernel alone by CUDA graph replay (``graph_ms``); the bound from
-     published H100 SXM peaks, and for the 9x9 stencils a second computed
-     bound, the exactness floor (``exact_floor_ms``, EXACT_F32_OPS_PER_S);
+     published H100 SXM peaks, and for the 9x9 stencils and the inject a
+     second computed bound, the exactness floor (``exact_floor_ms``,
+     EXACT_F32_OPS_PER_S);
   2. tail kernels (ops/hopper/tail.py): each entry point against its plain
      version on standard-normal inputs at odd shapes and at every active
      level of the 4K frame, both preweighted and both rebuild arms, within
@@ -42,8 +43,10 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      frame, under the jnp and the level tails (K5 launched once a frame, at
      level 4) and under the fast flags;
   6. the fused build (K5, riesz_build_level) against its plain version at odd
-     shapes, 68x120 and every 4K band level, timed beside K1+K2+K3 at the
-     same shape; every bf16 arm of K1-K4 and K6 against its plain version
+     shapes, 68x120, every 4K band level and every edge of its tiles (bit
+     for bit, the sign of a zero included), timed beside K1+K2+K3 at
+     the same shape by events and by graph replay, with its exactness floor;
+     every bf16 arm of K1-K4 and K6 against its plain version
      (the 9x9 arms also at every edge of their tiles, the amplify kernel's
      fourteen other instantiations bit for bit at every shape of
      tail.amplify13_shapes()), timed as in 1. at every 4K level with a cuDNN
@@ -259,6 +262,9 @@ def kernel_phase(dev, st, sizes):
     inject_pairs = [((17, 129), (33, 257)), ((49, 101), (97, 201)), ((68, 121), (135, 241)),
                     ((64, 64), (128, 128))]
     inject_pairs += [(sizes[i + 1], sizes[i]) for i in range(len(sizes) - 1)]
+    inject_pairs += [p for p in st.inject9_shapes() if p not in inject_pairs]
+    any_inject = [((5, 5), (9, 9)), ((17, 129), (33, 257)), ((273, 1025), (545, 2049)),
+                  ((540, 960), (1080, 1920))]
     s9_shapes = build_shapes + stencil9_shapes()
     kr = random_taps(rng)
     if st.tap_pattern(kr) != "any" or st.tap_pattern(LOWPASS_2X) != "dense" or \
@@ -279,7 +285,9 @@ def kernel_phase(dev, st, sizes):
            for s in any_shapes],
         "lp9_inject": [(lambda x, o=o: st.lp9_inject(x, LOWPASS_2X, o),
                         lambda x, o=o: st.lp9_inject_plain(x, LOWPASS_2X, o), s)
-                       for s, o in inject_pairs],
+                       for s, o in inject_pairs]
+        + [(lambda x, o=o: st.lp9_inject(x, kr, o), lambda x, o=o: st.lp9_inject_plain(x, kr, o), s)
+           for s, o in any_inject],
     }
     # The kernels keep every product and sum apart in the plain version's
     # order, so they should agree exactly; the stated tolerance leaves room
@@ -361,7 +369,8 @@ def time_phase(dev, st, sizes):
                            lambda: st.lp9_inject_plain(small, LOWPASS_2X, (h, w)), None,
                            (shw + hw) * f4, 2 * 81 * hw // 4),
         }
-        floors = {"conv9": 2 * nnz(RIESZ_HIGHPASS_9x9) * hw, "lp9_decimate": 2 * 81 * oh * ow}
+        floors = {"conv9": 2 * nnz(RIESZ_HIGHPASS_9x9) * hw, "lp9_decimate": 2 * 81 * oh * ow,
+                  "lp9_inject": 2 * 81 * hw // 4}
         iters = 50 if lvl == 0 else 200
         for name, (kernel, plain, lib_in, nbytes, ops) in specs.items():
             ms = cuda_ms(kernel, iters)
@@ -891,14 +900,19 @@ def bound(nbytes: float, ops: float, bf16_ops: float = 0.0):
 
 def build_kernel_check(dev, st, sizes):
     """K5 against its plain version on the card, both output dtypes, at odd
-    shapes, 1080p's level 4 and every 4K band level."""
+    shapes, 1080p's level 4, every 4K band level and every shape of
+    st.build_level_shapes() (the edges of its tiles): every output
+    bit-equal, the sign of a zero included, and max |kernel - plain|."""
     import torch
 
     rng = np.random.default_rng(SEED + 5)
     shapes = [(16, 16), (33, 257), (97, 201), (135, 241), (68, 120)] + list(sizes[:-1])
+    shapes += [s for s in st.build_level_shapes() if s not in shapes]
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     worst = 0.0
     for shape in shapes:
         x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100.0).to(dev)
+        x[: shape[0] // 3] = 0.0  # signed zeros in every output
         for od in ("f32", "bf16"):
             got = st.riesz_build_level(x, out_dtype=od)
             ref = st.riesz_build_level_plain(x, od)
@@ -913,16 +927,21 @@ def build_kernel_check(dev, st, sizes):
                     raise AssertionError(f"riesz_build_level at {shape} ({od}): max |kernel - "
                                          f"plain| {err} > {bar}")
                 worst = max(worst, err)
+                if not torch.equal(g.view(as_int[g.dtype]), r.view(as_int[r.dtype])):
+                    raise AssertionError(f"riesz_build_level at {shape} ({od}): not bit-equal "
+                                         "to its plain version")
     log(phase="build_kernel_check", kernel="riesz_build_level", shapes=[list(s) for s in shapes],
-        out_dtypes=["f32", "bf16"], max_abs_err=worst,
-        tolerance="1e-06 x max(1, max|plain|)")
+        out_dtypes=["f32", "bf16"], max_abs_err=worst, bit_equal=True,
+        tolerance="1e-06 x max(1, max|plain|); bit for bit")
     return worst
 
 
 def build_kernel_time(dev, st, sizes):
     """ms of K5 (f32 outputs, the fused route) and of its plain version at
     1080p's level 4 and every 4K band level, beside K1+K2+K3 at the same
-    shape, with the bound from this run's shapes."""
+    shape by events (``k1_k2_k3_ms``) and by graph replay
+    (``k1_k2_k3_graph_ms``), with the bound and the exactness floor from
+    this run's shapes."""
     from live_video_magnification_tpu_torch.ops.kernels import (
         LOWPASS_2X,
         RIESZ_BAND_KERNEL,
@@ -940,9 +959,11 @@ def build_kernel_time(dev, st, sizes):
         ms = cuda_ms(lambda: st.riesz_build_level(x), iters)
         build_graph_ms = graph_ms(lambda: st.riesz_build_level(x), iters)
         plain_ms = cuda_ms(lambda: st.riesz_build_level_plain(x), max(5, iters // 10), warmup=1)
-        three = {"conv9": cuda_ms(lambda: st.conv9(x, RIESZ_HIGHPASS_9x9), iters),
-                 "band5": cuda_ms(lambda: st.band5(hp, RIESZ_BAND_KERNEL), iters),
-                 "lp9_decimate": cuda_ms(lambda: st.lp9_decimate(x, LOWPASS_2X), iters)}
+        calls = {"conv9": lambda: st.conv9(x, RIESZ_HIGHPASS_9x9),
+                 "band5": lambda: st.band5(hp, RIESZ_BAND_KERNEL),
+                 "lp9_decimate": lambda: st.lp9_decimate(x, LOWPASS_2X)}
+        three = {k: cuda_ms(f, iters) for k, f in calls.items()}
+        three_graph = {k: graph_ms(f, iters) for k, f in calls.items()}
         oh, ow = (h + 1) // 2, (w + 1) // 2
         nbytes = (h * w + 3 * h * w + oh * ow) * 4  # 1 read, 3 writes, 1/4 write
         ops = (2 * nnz(RIESZ_HIGHPASS_9x9) * h * w + 2 * 2 * nnz(RIESZ_BAND_KERNEL) * h * w
@@ -952,8 +973,9 @@ def build_kernel_time(dev, st, sizes):
                          grid="1080p" if (h, w) == (68, 120) else "4K", ms=ms,
                          graph_ms=build_graph_ms, plain_ms=plain_ms, library_ms=None,
                          bound_ms=bound_ms, bound_share=bound_ms / ms, bound_by=bound_by, bytes=nbytes,
-                         operations=ops, k1_k2_k3_ms=three,
-                         k1_k2_k3_sum_ms=sum(three.values())))
+                         operations=ops, exact_floor_ms=exact_floor_ms(ops), k1_k2_k3_ms=three,
+                         k1_k2_k3_sum_ms=sum(three.values()), k1_k2_k3_graph_ms=three_graph,
+                         k1_k2_k3_graph_sum_ms=sum(three_graph.values())))
         log(phase="build_kernel_time", **rows[-1])
     return rows
 
@@ -1096,6 +1118,7 @@ def bf16_kernel_time(dev, st, tl, sizes):
         }
         floors = {"conv9[bf16]": 2 * nnz(RIESZ_HIGHPASS_9x9) * hw,
                   "lp9_decimate[bf16]": 2 * 81 * oh * ow,
+                  "lp9_inject[bf16]": 2 * 81 * hw // 4,
                   "riesz_amplify_mxu[bf16]": k6_ops - k6_bf16 + TAIL_BF16_BLUR_INSTRUCTIONS * hw}
         iters = 50 if lvl == 0 else 200
         for name in BF16_REPLACES:
@@ -1445,12 +1468,15 @@ def main() -> int:
                         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
                         bound_by=top["bound_by"], library_ms=None,
                         shape=top["shape"], k1_k2_k3_sum_ms=top["k1_k2_k3_sum_ms"],
+                        k1_k2_k3_graph_sum_ms=top["k1_k2_k3_graph_sum_ms"], **floor(top),
                         fused_4k=dict(path=path("fused"),
                                       launches=runs["fused"]["riesz_build_level"],
                                       shape=top4k["shape"], ms=top4k["ms"],
                                       graph_ms=top4k["graph_ms"], plain_ms=top4k["plain_ms"],
                                       bound_ms=top4k["bound_ms"], bound_by=top4k["bound_by"],
-                                      k1_k2_k3_sum_ms=top4k["k1_k2_k3_sum_ms"])))
+                                      exact_floor_ms=top4k["exact_floor_ms"],
+                                      k1_k2_k3_sum_ms=top4k["k1_k2_k3_sum_ms"],
+                                      k1_k2_k3_graph_sum_ms=top4k["k1_k2_k3_graph_sum_ms"])))
     for k, replaces in BF16_REPLACES.items():
         top = level0(bf16_times, k)
         launched = runs["fast"][k]

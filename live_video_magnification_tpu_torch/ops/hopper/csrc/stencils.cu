@@ -18,11 +18,11 @@
 //                        zero_inject(small, out_hw) (*) k9, without the
 //                        injected array; odd and even targets alike
 //   lvmt_riesz_build_level <- riesz_build.py::riesz_build_level_fused
-//                        hp = x (*) HP9 on the tile plus a mirrored 2-px
-//                        apron in shared memory, the band pair from it, and
-//                        (x (*) 2LP9) at the kept even sites: one read of
-//                        the octave for what conv9, band5 and lp9_decimate
-//                        read three times
+//                        hp = x (*) HP9 on the tile plus a 2-px apron in
+//                        shared memory (mirrored outside the image), the band
+//                        pair from it, and (x (*) 2LP9) at the kept even
+//                        sites: one read of the octave for what conv9, band5
+//                        and lp9_decimate read three times
 //
 // The bf16 operand arm (the reference's LVMT_MXU_DTYPE=bf16: dot of bf16
 // operands, f32 accumulation) is a template flag ROUND (in stencil9_kernel
@@ -37,9 +37,11 @@
 // (__fmul_rn / __fadd_rn, which the compiler never contracts into an FMA),
 // rows summed in order, taps left to right, zero taps skipped. That is the
 // order of the plain PyTorch version (ops/conv.py), so the kernels agree with
-// it bit for bit (up to the sign of a zero; conv9 and lp9_decimate start each
-// row sum from its first product and the total from its first row, as the
-// plain version does, so there the sign of a zero matches too).
+// it bit for bit. conv9, lp9_decimate, lp9_inject and the fused build start
+// each row sum from its first product and the total from its first row, as
+// the plain version does, so the sign of a zero matches too (inject adds +0
+// where the plain version's zero-site products would; see inject9_kernel);
+// band5 starts its sums from +0 and matches up to the sign of a zero.
 //
 // The exactness floor: rounding each product and sum alone costs two issue
 // slots per used tap where an FMA would take one, at most 128 f32
@@ -49,9 +51,13 @@
 // ~20 us at 3.35 TB/s) and its FMA-counted f32 bound (~19 us at 67 TFLOP/s).
 // So conv9 is bound by instruction issue, and cannot pass about half of its
 // table bound while it stays bit-equal to its plain version. lp9_decimate
-// (81 taps at a quarter of the sites, ~10 us of instructions) and inject are
-// bound by bytes (41 MB each, ~12 us), band5 too (100 MB, ~30 us); the fused
-// build moves 33 + 100 + 8 MB and does 2.0 G operations (~42 us, bytes).
+// (81 taps at a quarter of the sites, ~10 us of instructions) and inject
+// (each output meets the taps of its parity class, 81/4 on average: ~40
+// instructions an output, ~10 us) are bound by bytes and issue about
+// equally (41 MB each, ~12 us); band5 by bytes (100 MB, ~30 us). The fused
+// build moves 33 + 100 + 8 MB (~42 us) but issues ~210 instructions an
+// output at the least (hp 153, the band pair 16, a quarter of a decimate
+// sum's 161), ~52 us: bound by issue, as conv9 is.
 //
 // conv9 and lp9_decimate (stencil9_kernel) spend their issue slots on those
 // products and sums and little else:
@@ -80,15 +86,24 @@
 //     that still gives two blocks an SM, and RY = 1 on smaller levels
 //     (decimate there with half-width tiles, so its few tiles spread over
 //     the SMs); any other bank always takes RY = 1.
+// The fused build (build_level_kernel) and the inject (inject9_kernel) use
+// the same machinery: compile-time tap patterns (HP9 without corners and
+// 2*LP9 dense, the band taps' zero centre; inject's dense bank), register
+// blocks of 4 outputs along W fed by 16-byte (8-byte for inject) shared
+// reads, 16-byte staging with reflect-101 only outside the image, blocks that
+// walk tiles and prefetch, a tall tile and a small one by the same size rule.
+// The fused build computes hp on its tile plus a 2-px apron (64x32 outputs,
+// hp on 72x36: 1.27x) and copies the apron outside the image from its
+// mirror; its band pair and decimate read the shared tiles. The inject
+// stages only the even sites of the injected array and sums only the taps
+// that meet them.
 // No tensor cores: their sums take another order, which would break the
 // agreement with the plain versions, K5's with K1+K2+K3, and the sharded
 // step's 0 LSB.
 //
-// The other kernels stage one input tile per block through shared memory
-// and write each output once; band5, inject and the fused build compute RY
-// outputs down a column from a row of tile values loaded into registers. The
-// fused build recomputes hp on its 2-px apron (36x36 values for a 32x32
-// tile, +27%) rather than exchange it between blocks.
+// band5 stages one input tile per block through shared memory and writes
+// each output once, RY outputs down a column from a row of tile values
+// loaded into registers.
 //
 // C interface: pointers and the stream as void*, sizes as int, taps as a host
 // pointer copied into a by-value kernel parameter. Each function returns
@@ -97,6 +112,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 
@@ -233,6 +249,60 @@ __device__ __forceinline__ void add_row(int r, const float (&v)[S][NV], const Ta
   }
 }
 
+// Loads chunk U*NT + tid of a tile's N_CHUNKS 4-column chunks (Q to a row;
+// rows from iy0, columns from ix0, a multiple of 4) of x into buf[U]: one
+// 16-byte load inside the image, four loads mirrored by index (reflect-101)
+// outside it, only at the left and right borders; rows mirrored by index,
+// once a chunk. w % 4 == 0.
+template <int NT, int Q, int N_CHUNKS, int CHUNKS>
+__device__ __forceinline__ void fetch16(float4 (&buf)[CHUNKS], const float* __restrict__ x,
+                                        int h, int w, int iy0, int ix0, int tid) {
+  unrolled<0, CHUNKS>([&](auto u) {
+    constexpr int U = decltype(u)::value;
+    const int i = U * NT + tid;
+    if (U < CHUNKS - 1 || i < N_CHUNKS) {
+      const int r = i / Q;
+      const int c = ix0 + 4 * (i - r * Q);
+      const float* row = x + (size_t)reflect101(iy0 + r, h) * w;
+      if (c >= 0 && c < w) {
+        buf[U] = *reinterpret_cast<const float4*>(row + c);
+      } else {
+        buf[U] = make_float4(row[reflect101(c, w)], row[reflect101(c + 1, w)],
+                             row[reflect101(c + 2, w)], row[reflect101(c + 3, w)]);
+      }
+    }
+  });
+}
+
+// Stages a tile of N elements, LOAD_W to a row, from rows iy0 and columns
+// ix0 of x one element at a time, each mirrored by index, STAGE_BATCH loads
+// in flight a thread; put(r, c, v) stores one. For rows that are not
+// 16-byte aligned.
+template <int NT, int N, int LOAD_W, typename Put>
+__device__ __forceinline__ void stage_elements(const float* __restrict__ x, int h, int w,
+                                               int iy0, int ix0, int tid, const Put& put) {
+  constexpr int ITERS = (N + NT - 1) / NT;
+#pragma unroll 1
+  for (int base = 0; base < ITERS; base += STAGE_BATCH) {
+    float e[STAGE_BATCH];
+    unrolled<0, STAGE_BATCH>([&](auto u) {
+      const int i = (base + decltype(u)::value) * NT + tid;
+      if (i < N) {
+        const int r = i / LOAD_W;
+        e[decltype(u)::value] =
+            x[(size_t)reflect101(iy0 + r, h) * w + reflect101(ix0 + i - r * LOAD_W, w)];
+      }
+    });
+    unrolled<0, STAGE_BATCH>([&](auto u) {
+      const int i = (base + decltype(u)::value) * NT + tid;
+      if (i < N) {
+        const int r = i / LOAD_W;
+        put(r, i - r * LOAD_W, e[decltype(u)::value]);
+      }
+    });
+  }
+}
+
 // 9x9 correlation sampled with stride S (S=1: conv9, S=2: decimate), taps
 // of zero pattern PAT. A block of WX x BY threads walks output tiles
 // TX x TY = (WX*4) x (BY*RY), tile t at (t % tiles_x, t / tiles_x), from
@@ -271,29 +341,11 @@ stencil9_kernel(const float* __restrict__ x, TOut* __restrict__ out, int h, int 
   const int c0 = threadIdx.x * RX;      // the thread's first column in each plane
   const int r0 = S * threadIdx.y * RY;  // the tile row its first output's window starts at
 
-  // 16-byte rows: chunk i of a tile, one 16-byte load inside the image, four
-  // loads mirrored by index outside it (only at the left and right borders);
-  // rows mirrored by index
-  float4 buf[CHUNKS];
+  float4 buf[CHUNKS];  // 16-byte rows: the chunks of the next tile
   auto fetch = [&](int t) {
     const int ty = t / tiles_x;
-    const int iy0 = S * ty * TY - 4;
-    const int ix0 = S * (t - ty * tiles_x) * TX - 4;  // a multiple of 4
-    unrolled<0, CHUNKS>([&](auto u) {
-      constexpr int U = decltype(u)::value;
-      const int i = U * NT + tid;
-      if (U < CHUNKS - 1 || i < IN_H * Q) {
-        const int r = i / Q;
-        const int c = ix0 + 4 * (i - r * Q);
-        const float* row = x + (size_t)reflect101(iy0 + r, h) * w;
-        if (c >= 0 && c < w) {
-          buf[U] = *reinterpret_cast<const float4*>(row + c);
-        } else {
-          buf[U] = make_float4(row[reflect101(c, w)], row[reflect101(c + 1, w)],
-                               row[reflect101(c + 2, w)], row[reflect101(c + 3, w)]);
-        }
-      }
-    });
+    fetch16<NT, Q, IN_H * Q>(buf, x, h, w, S * ty * TY - 4,
+                             S * (t - ty * tiles_x) * TX - 4, tid);
   };
   auto put = [&]() {
     unrolled<0, CHUNKS>([&](auto u) {
@@ -332,31 +384,10 @@ stencil9_kernel(const float* __restrict__ x, TOut* __restrict__ out, int h, int 
       if (t + stride < tiles) fetch(t + stride);  // in flight during the sums below
     } else {
       // rows not aligned (w % 4 != 0): one element at a time, mirrored by index
-      const int iy0 = S * oy0 - 4;
-      const int ix0 = S * ox0 - 4;
-      constexpr int N = IN_H * LOAD_W;
-      constexpr int ITERS = (N + NT - 1) / NT;
-#pragma unroll 1
-      for (int base = 0; base < ITERS; base += STAGE_BATCH) {
-        float e[STAGE_BATCH];
-        unrolled<0, STAGE_BATCH>([&](auto u) {
-          const int i = (base + decltype(u)::value) * NT + tid;
-          if (i < N) {
-            const int r = i / LOAD_W;
-            e[decltype(u)::value] =
-                x[(size_t)reflect101(iy0 + r, h) * w + reflect101(ix0 + i - r * LOAD_W, w)];
-          }
-        });
-        unrolled<0, STAGE_BATCH>([&](auto u) {
-          const int i = (base + decltype(u)::value) * NT + tid;
-          if (i < N) {
-            const int r = i / LOAD_W;
-            const int c = i - r * LOAD_W;
-            const float v = e[decltype(u)::value];
+      stage_elements<NT, IN_H * LOAD_W, LOAD_W>(
+          x, h, w, S * oy0 - 4, S * ox0 - 4, tid, [&](int r, int c, float v) {
             tile[c % S][r][c / S] = to_bf16 ? round_bf16(v) : v;
-          }
-        });
-      }
+          });
       __syncthreads();
     }
 
@@ -446,172 +477,423 @@ band5_kernel(const TIn* __restrict__ hp, TOut* __restrict__ r_out,
   }
 }
 
+// The small-image index of the injected array's even site 2s on an axis of
+// n (ns = (n+1)/2 even sites): reflect-101 keeps the parity of a coordinate,
+// so 2s < 0 mirrors to -2s and 2s >= n to 2n-2-2s; clamped where no valid
+// output reads.
+__device__ __forceinline__ int mirror_even(int s, int n, int ns) {
+  s = s < 0 ? -s : s;
+  s = s >= ns ? n - 1 - s : s;
+  return min(max(s, 0), ns - 1);
+}
+
 // Collapse upsample: out = Z (*) k9 with Z the zero-injected small image at
 // the output size (h, w): Z[p][q] = small[p/2][q/2] at even (p, q), else 0,
-// reflect-101 on Z's own size. Reflect-101 keeps the parity of a coordinate
-// (-p and 2n-2-p have p's parity), so output (y, x) meets nonzero Z only for
-// taps with (y+a) and (x+b) even, and the tile can hold just the even sites:
-// S[i][j] = Z[Y0+2i][X0+2j] = small[refl(Y0+2i)/2][refl(X0+2j)/2].
-// Each thread computes a 2-wide x RY-tall patch (both column parities, so a
-// warp never diverges on parity); the skipped taps add exact zeros in the
-// plain version. ROUND: bf16 operands (the tile holds the rounded pixels).
-template <int RY, bool ROUND>
-__global__ void __launch_bounds__(BX * BY)
-inject9_kernel(const float* __restrict__ small, float* __restrict__ out, int sh,
-               int sw, int h, int w, Taps81 taps) {
-  constexpr int TX = 2 * BX;
+// reflect-101 on Z's own size. Reflect-101 keeps the parity of a coordinate,
+// so output (y, x) meets nonzero Z only at taps with (y+a) and (x+b) even,
+// and the tile holds just the even sites: S[i][j] = Z[oy0-4+2i][ox0-4+2j],
+// small at mirror_even of (oy0/2-2+i, ox0/2-2+j). A block of WX x BY threads
+// walks output tiles 4WX x BY*RY as stencil9_kernel does; with 16-byte small
+// rows it stages 4-column chunks of small from column ox0/2-4 (one 16-byte
+// load inside the used part of small, four mirrored loads outside it) into S
+// as two 8-byte halves, and prefetches the next tile's chunks into registers.
+// A thread computes 4 adjacent outputs along W (both column parities) by RY
+// rows from 8-byte reads of S, each read feeding every output that uses it;
+// only the taps that meet even sites are summed, rows in order, taps left to
+// right, each row sum from its first product (the zero pattern at compile
+// time for a dense bank; any other bank tests each tap as it runs, its sums
+// starting from -0, which adds nothing). The plain version also adds the
+// products at zero sites, 0 * k: exact zeros, which change only the sign of
+// a zero total. negz (from the host, bit 2*(y&1) + (x&1)) says for each
+// output parity class whether all of them are -0 (and every tap row used);
+// where not, the kernel adds +0 to its total, so the sign of a zero matches
+// the plain version too. ROUND: bf16 operands (S holds the rounded pixels;
+// products and sums stay unfused, so no product's rounding can differ).
+template <int WX, int RY, int PAT, bool ROUND>
+__global__ void __launch_bounds__(WX * BY)
+inject9_kernel(const float* __restrict__ small, float* __restrict__ out, int sw, int h,
+               int w, int tiles_x, int tiles, int flags, int negz,
+               const __grid_constant__ Taps81 taps) {
+  constexpr int NT = WX * BY;
+  constexpr int TX = 4 * WX;
   constexpr int TY = BY * RY;
-  constexpr int S_H = (TY + 8) / 2;
-  constexpr int S_W = (TX + 8) / 2;
-  static_assert(RY % 2 == 0, "thread row origin must stay even");
-  __shared__ float tile[S_H][S_W];
+  constexpr int S_H = TY / 2 + 4;  // even-site rows from Z row oy0 - 4
+  constexpr int S_W = TX / 2 + 4;  // even-site columns from Z column ox0 - 4
+  constexpr int Q = TX / 8 + 2;    // 4-column chunks of small a row, from column ox0/2 - 4
+  constexpr int CHUNKS = (S_H * Q + NT - 1) / NT;
+  static_assert(RY % 2 == 0 && TX % 64 == 0, "even origins; chunks from a multiple of 4");
+  __shared__ __align__(16) float tile[S_H][S_W];
 
-  const int ox0 = blockIdx.x * TX;  // even
-  const int oy0 = blockIdx.y * TY;  // even
-  for (int idx = threadIdx.y * BX + threadIdx.x; idx < S_H * S_W; idx += BX * BY) {
-    const int i = idx / S_W;
-    const int j = idx - i * S_W;
-    const int p = reflect101(oy0 - 4 + 2 * i, h) >> 1;
-    const int q = reflect101(ox0 - 4 + 2 * j, w) >> 1;
-    const float v = small[(size_t)min(p, sh - 1) * sw + min(q, sw - 1)];
-    tile[i][j] = ROUND ? round_bf16(v) : v;
-  }
-  __syncthreads();
+  const int tid = threadIdx.y * WX + threadIdx.x;
+  const bool vec_in = flags & FLAG_VEC_IN;
+  const int hs = (h + 1) / 2;  // even sites of Z down H (the small rows it uses)
+  const int ws = (w + 1) / 2;
+  const int m = threadIdx.x;              // the thread's outputs 4m .. 4m+3 of a tile row
+  const int n0 = threadIdx.y * (RY / 2);  // S row of its first output row's first tap row
 
-  const int tx = threadIdx.x;
-  const int ty0 = threadIdx.y * RY;  // even
-#pragma unroll
-  for (int dy = 0; dy < RY; ++dy) {
-    const int oy = oy0 + ty0 + dy;
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const int ox = ox0 + 2 * tx + dx;
-      float acc = 0.f;
-#pragma unroll
-      for (int a = (dy & 1); a < 9; a += 2) {
-        const int i = (ty0 + dy + a) >> 1;
-        float row = 0.f;
-#pragma unroll
-        for (int b = dx; b < 9; b += 2) {
-          const float k = taps.k[a * 9 + b];
-          if (k != 0.f) row = madd(row, tile[i][tx + ((dx + b) >> 1)], k);
+  float4 buf[CHUNKS];
+  auto fetch = [&](int t) {
+    const int ty = t / tiles_x;
+    const int sy0 = ty * (TY / 2) - 2;
+    const int sx0 = (t - ty * tiles_x) * (TX / 2) - 4;  // a multiple of 4
+    unrolled<0, CHUNKS>([&](auto u) {
+      constexpr int U = decltype(u)::value;
+      const int i = U * NT + tid;
+      if (U < CHUNKS - 1 || i < S_H * Q) {
+        const int r = i / Q;
+        const int c = sx0 + 4 * (i - r * Q);
+        const float* row = small + (size_t)mirror_even(sy0 + r, h, hs) * sw;
+        if (c >= 0 && c + 3 < ws) {
+          buf[U] = *reinterpret_cast<const float4*>(row + c);
+        } else {
+          buf[U] = make_float4(row[mirror_even(c, w, ws)], row[mirror_even(c + 1, w, ws)],
+                               row[mirror_even(c + 2, w, ws)], row[mirror_even(c + 3, w, ws)]);
         }
-        acc = __fadd_rn(acc, row);
       }
-      if (oy < h && ox < w) out[(size_t)oy * w + ox] = acc;
+    });
+  };
+  auto put = [&]() {
+    unrolled<0, CHUNKS>([&](auto u) {
+      constexpr int U = decltype(u)::value;
+      const int i = U * NT + tid;
+      if (U < CHUNKS - 1 || i < S_H * Q) {
+        const int r = i / Q;
+        const int q = i - r * Q;
+        float4 v = buf[U];
+        if (ROUND) {
+          v.x = round_bf16(v.x);
+          v.y = round_bf16(v.y);
+          v.z = round_bf16(v.z);
+          v.w = round_bf16(v.w);
+        }
+        // the chunk starts at S column 4q - 2
+        if (q > 0) *reinterpret_cast<float2*>(&tile[r][4 * q - 2]) = make_float2(v.x, v.y);
+        if (q < Q - 1) *reinterpret_cast<float2*>(&tile[r][4 * q]) = make_float2(v.z, v.w);
+      }
+    });
+  };
+
+  const int first_tile = blockIdx.x;
+  const int stride = gridDim.x;
+  if (vec_in && first_tile < tiles) fetch(first_tile);
+  for (int t = first_tile; t < tiles; t += stride) {
+    const int oy0 = t / tiles_x * TY;
+    const int ox0 = (t - t / tiles_x * tiles_x) * TX;
+    __syncthreads();  // every thread is done reading the previous tile
+    if (vec_in) {
+      put();
+      __syncthreads();
+      if (t + stride < tiles) fetch(t + stride);  // in flight during the sums below
+    } else {
+      // small's rows not 16-byte aligned: one element at a time, mirrored by index
+      const int sy0 = oy0 / 2 - 2;
+      const int sx0 = ox0 / 2 - 2;
+      constexpr int N = S_H * S_W;
+      constexpr int ITERS = (N + NT - 1) / NT;
+#pragma unroll 1
+      for (int base = 0; base < ITERS; base += STAGE_BATCH) {
+        float e[STAGE_BATCH];
+        unrolled<0, STAGE_BATCH>([&](auto u) {
+          const int i = (base + decltype(u)::value) * NT + tid;
+          if (i < N) {
+            const int r = i / S_W;
+            e[decltype(u)::value] = small[(size_t)mirror_even(sy0 + r, h, hs) * sw +
+                                          mirror_even(sx0 + i - r * S_W, w, ws)];
+          }
+        });
+        unrolled<0, STAGE_BATCH>([&](auto u) {
+          const int i = (base + decltype(u)::value) * NT + tid;
+          if (i < N) {
+            const int r = i / S_W;
+            const float v = e[decltype(u)::value];
+            tile[r][i - r * S_W] = ROUND ? round_bf16(v) : v;
+          }
+        });
+      }
+      __syncthreads();
     }
+
+    // S row n0 + K meets output row E (0 .. RY-1) of the thread at tap row
+    // 2K - E, and output T (0 .. 3) at tap b on S column 2m + (T + b) / 2
+    float acc[RY][4] = {};
+    unrolled<0, RY / 2 + 4>([&](auto kk) {
+      constexpr int K = decltype(kk)::value;
+      const float2* p = reinterpret_cast<const float2*>(&tile[n0 + K][2 * m]);
+      const float2 p0 = p[0], p1 = p[1], p2 = p[2];
+      const float u6[6] = {p0.x, p0.y, p1.x, p1.y, p2.x, p2.y};
+      unrolled<0, RY>([&](auto ee) {
+        constexpr int E = decltype(ee)::value;
+        constexpr int A = 2 * K - E;
+        if constexpr (A >= 0 && A <= 8) {
+          unrolled<0, 4>([&](auto tt) {
+            constexpr int T = decltype(tt)::value;
+            float row = -0.f;
+            unrolled<0, 5>([&](auto bb) {
+              constexpr int B = (T & 1) + 2 * decltype(bb)::value;
+              if constexpr (B <= 8) {
+                const float k = taps.k[A * 9 + B];
+                if constexpr (PAT == TAPS_DENSE) {
+                  const float prod = __fmul_rn(u6[(T + B) / 2], k);
+                  row = B == (T & 1) ? prod : __fadd_rn(row, prod);
+                } else if (k != 0.f) {
+                  row = __fadd_rn(row, __fmul_rn(u6[(T + B) / 2], k));
+                }
+              }
+            });
+            acc[E][T] = A == (E & 1) ? row : __fadd_rn(acc[E][T], row);
+          });
+        }
+      });
+    });
+
+    const int ox = ox0 + 4 * m;
+    const bool vec_out = (flags & FLAG_VEC_OUT) && ox + 4 <= w;
+    unrolled<0, RY>([&](auto ee) {
+      constexpr int E = decltype(ee)::value;
+      const int oy = oy0 + 2 * n0 + E;
+      float v[4];
+#pragma unroll
+      for (int T = 0; T < 4; ++T) {
+        const bool neg = (negz >> (2 * (E & 1) + (T & 1))) & 1;
+        v[T] = neg ? acc[E][T] : __fadd_rn(acc[E][T], 0.f);
+      }
+      if (oy < h) {
+        const size_t o = (size_t)oy * w + ox;
+        if (vec_out) {
+          store4(out + o, v);
+        } else {
+#pragma unroll
+          for (int T = 0; T < 4; ++T) {
+            if (ox + T < w) out[o + T] = v[T];
+          }
+        }
+      }
+    });
   }
 }
 
-// One band level of the pyramid in one pass (the fused build). Block: BX x
-// BY threads over a BX x (BY*BUILD_RY) output tile. The octave tile carries a
-// 6-px halo (the 9x9 reach plus the band pair's 2), loaded once with
-// reflect-101 by index. hp is computed for the tile plus a 2-px apron into
-// shared memory; an apron position outside the image holds hp at the
-// mirrored index (reflect-101 of hp, as band5 reads it), computed from the
-// octave tile, which covers the 9x9 window of every mirrored position a
-// valid output needs (the window start is clamped only for positions no
-// valid output reads). Then each thread writes hp, r and i for its outputs
-// and one decimated 2LP9 value at a kept (even, even) site. Every sum runs
-// in conv9's, band5's and lp9_decimate's order, so the outputs equal theirs.
-template <typename TOut>
-__global__ void __launch_bounds__(BX * BY)
+// One band level of the pyramid in one pass (the fused build): hp = x (*)
+// HP9, its band pair, and (x (*) 2LP9) at the kept even sites. A block of NT
+// threads walks output tiles TX x TY as stencil9_kernel does, staging TY+12
+// octave rows from oy0-6 and TX+16 columns from ox0-8 in 16-byte chunks
+// (reflect-101 by index, only for chunks outside the image) and prefetching
+// the next tile's chunks into registers; other widths stage one element at
+// a time. Then, for each tile:
+//   1. hp on the tile plus its apron, positions [oy0-2, oy0+TY+2) x
+//      [ox0-4, ox0+TX+4), into shared memory, by items of 4 columns x R rows
+//      that add_row sums from 16-byte reads of the staged rows (HP9's corners
+//      skipped at compile time). An apron position outside the image is then
+//      copied from its mirrored position (reflect-101 of hp's own index, as
+//      band5 reads hp), so the apron holds exactly what conv9 would write.
+//   2. A thread's 4 x RB outputs: hp, r along W and i along H from 16-byte
+//      reads of the hp tile (the band taps' zero centre skipped at compile
+//      time), stored 16 (f32) or 8 (bf16) bytes at a time where rows allow;
+//      and a pair of kept sites of the decimated octave from the staged rows
+//      (add_row with S = 2 on registers split by column parity).
+// Each sum runs in conv9's, band5's and lp9_decimate's order, every product
+// and sum rounded alone, starting from its first product (the totals of hp
+// and the octave from their first row), as the plain versions do: the
+// outputs equal them bit for bit, the sign of a zero included. (band5_kernel
+// starts its sums from +0, so r and i equal K2's up to the sign of a zero.)
+// The host checks that the three banks have the zero patterns compiled in.
+template <int TX, int TY, int NT, int R, int MIN_BLOCKS, typename TOut>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 build_level_kernel(const float* __restrict__ x, TOut* __restrict__ hp_out,
                    TOut* __restrict__ r_out, TOut* __restrict__ i_out,
-                   float* __restrict__ sub_out, int h, int w, Taps81 hp9, Taps5 t5,
-                   Taps81 lp9) {
-  constexpr int RY = 4;
-  constexpr int TX = BX;
-  constexpr int TY = BY * RY;
-  constexpr int IN_H = TY + 12;
-  constexpr int IN_W = TX + 12;
-  constexpr int HP_H = TY + 4;
-  constexpr int HP_W = TX + 4;
-  static_assert(TX % 2 == 0 && TY % 2 == 0, "tile origins must stay even");
-  static_assert((TX / 2) * (TY / 2) == BX * BY, "one kept site a thread");
-  __shared__ float tile[IN_H][IN_W];
-  __shared__ float hpx[HP_H][HP_W];
+                   float* __restrict__ sub_out, int h, int w, int tiles_x, int tiles,
+                   int flags, const __grid_constant__ Taps81 hp9,
+                   const __grid_constant__ Taps5 t5, const __grid_constant__ Taps81 lp9) {
+  constexpr int IN_H = TY + 12;    // octave rows from oy0 - 6
+  constexpr int LOAD_W = TX + 16;  // octave columns from ox0 - 8
+  constexpr int Q = LOAD_W / 4;    // 4-column chunks of a staged row
+  constexpr int CHUNKS = (IN_H * Q + NT - 1) / NT;
+  constexpr int HP_H = TY + 4;     // hp rows from oy0 - 2
+  constexpr int HP_W = TX + 8;     // hp columns from ox0 - 4
+  constexpr int HP_Q = HP_W / 4;
+  constexpr int HP_ITEMS = HP_Q * (HP_H / R);
+  constexpr int BQ = TX / 4;              // 4-column groups of a tile row
+  constexpr int RB = TY * BQ / NT;        // tile rows of a thread's outputs
+  constexpr int DEC_ITEMS = TY / 2 * BQ;  // pairs of kept sites (TX / 2 a kept row)
+  static_assert(TX % 32 == 0 && TY % 2 == 0 && HP_H % R == 0 && RB * NT == TY * BQ,
+                "tile shape");
+  __shared__ __align__(16) float tile[IN_H][LOAD_W];
+  __shared__ __align__(16) float hpx[HP_H][HP_W];
 
-  const int ox0 = blockIdx.x * TX;
-  const int oy0 = blockIdx.y * TY;
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  for (int idx = tid; idx < IN_H * IN_W; idx += BX * BY) {
-    const int r = idx / IN_W;
-    const int c = idx - r * IN_W;
-    tile[r][c] = x[(size_t)reflect101(oy0 - 6 + r, h) * w + reflect101(ox0 - 6 + c, w)];
-  }
-  __syncthreads();
+  const int tid = threadIdx.x;
+  const bool vec_in = flags & FLAG_VEC_IN;
+  const bool vec_out_rows = flags & FLAG_VEC_OUT;
+  const int sub_w = (w + 1) / 2;
 
-  for (int idx = tid; idx < HP_H * HP_W; idx += BX * BY) {
-    const int a = idx / HP_W;
-    const int b = idx - a * HP_W;
-    // the 9x9 window of hp at the mirrored position starts at tile row
-    // (ry - 4) - (oy0 - 6)
-    const int sy = min(max(reflect101(oy0 - 2 + a, h) - oy0 + 2, 0), IN_H - 9);
-    const int sx = min(max(reflect101(ox0 - 2 + b, w) - ox0 + 2, 0), IN_W - 9);
-    float acc = 0.f;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) {
-      float row = 0.f;
-#pragma unroll
-      for (int j = 0; j < 9; ++j) {
-        const float k = hp9.k[i * 9 + j];
-        if (k != 0.f) row = madd(row, tile[sy + i][sx + j], k);
+  float4 buf[CHUNKS];  // 16-byte rows: the chunks of the next tile
+  auto fetch = [&](int t) {
+    const int ty = t / tiles_x;
+    fetch16<NT, Q, IN_H * Q>(buf, x, h, w, ty * TY - 6, (t - ty * tiles_x) * TX - 8, tid);
+  };
+  auto put = [&]() {
+    unrolled<0, CHUNKS>([&](auto u) {
+      constexpr int U = decltype(u)::value;
+      const int i = U * NT + tid;
+      if (U < CHUNKS - 1 || i < IN_H * Q) {
+        const int r = i / Q;
+        *reinterpret_cast<float4*>(&tile[r][4 * (i - r * Q)]) = buf[U];
       }
-      acc = __fadd_rn(acc, row);
-    }
-    hpx[a][b] = acc;
-  }
-  __syncthreads();
+    });
+  };
+  auto band = [&](float p0, float p1, float p3, float p4) {
+    float s = __fmul_rn(p0, t5.k[0]);
+    s = __fadd_rn(s, __fmul_rn(p1, t5.k[1]));
+    s = __fadd_rn(s, __fmul_rn(p3, t5.k[3]));
+    return __fadd_rn(s, __fmul_rn(p4, t5.k[4]));
+  };
 
-  const int tx = threadIdx.x;
-  const int ox = ox0 + tx;
+  const int first_tile = blockIdx.x;
+  const int stride = gridDim.x;
+  if (vec_in && first_tile < tiles) fetch(first_tile);
+  for (int t = first_tile; t < tiles; t += stride) {
+    const int oy0 = t / tiles_x * TY;
+    const int ox0 = (t - t / tiles_x * tiles_x) * TX;
+    __syncthreads();  // every thread is done with the previous tile
+    if (vec_in) {
+      put();
+      __syncthreads();
+      if (t + stride < tiles) fetch(t + stride);  // in flight during the sums below
+    } else {
+      // rows not aligned (w % 4 != 0): one element at a time, mirrored by index
+      stage_elements<NT, IN_H * LOAD_W, LOAD_W>(x, h, w, oy0 - 6, ox0 - 8, tid,
+                                                [&](int r, int c, float v) { tile[r][c] = v; });
+      __syncthreads();
+    }
+
+    // 1. hp at hp-tile (g*R + j, 4k + i): its window starts at staged row
+    // g*R + j, column 4k + i
+#pragma unroll 1
+    for (int it = tid; it < HP_ITEMS; it += NT) {
+      const int g = it / HP_Q;
+      const int k = it - g * HP_Q;
+      float acc[R][4] = {};
+      const float* row0 = &tile[g * R][4 * k];
+      unrolled<0, R + 8>([&](auto rr) {
+        constexpr int RR = decltype(rr)::value;
+        float v[1][12];
+        read_row<1, 12, 0>(row0 + RR * LOAD_W, v);
+        add_row<1, TAPS_NO_CORNERS>(RR, v, hp9, acc);
+      });
 #pragma unroll
-  for (int j = 0; j < RY; ++j) {
-    const int ty = threadIdx.y * RY + j;
-    const int oy = oy0 + ty;
-    float rr = 0.f;
-    float ii = 0.f;
-#pragma unroll
-    for (int b = 0; b < 5; ++b) {
-      const float k = t5.k[b];
-      if (k != 0.f) {
-        rr = madd(rr, hpx[ty + 2][tx + b], k);
-        ii = madd(ii, hpx[ty + b][tx + 2], k);
+      for (int j = 0; j < R; ++j) {
+        *reinterpret_cast<float4*>(&hpx[g * R + j][4 * k]) =
+            make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
       }
     }
-    if (oy < h && ox < w) {
-      const size_t o = (size_t)oy * w + ox;
-      store(hp_out, o, hpx[ty + 2][tx + 2]);
-      store(r_out, o, rr);
-      store(i_out, o, ii);
-    }
-  }
-
-  // the kept site (2*dy, 2*dx) of the tile; its window starts at tile row
-  // (y - 4) - (oy0 - 6) = 2*dy + 2
-  const int dy = tid / (TX / 2);
-  const int dx = tid - dy * (TX / 2);
-  const int y = oy0 + 2 * dy;
-  const int xx = ox0 + 2 * dx;
-  if (y < h && xx < w) {
-    float acc = 0.f;
-#pragma unroll
-    for (int a = 0; a < 9; ++a) {
-      float row = 0.f;
-#pragma unroll
-      for (int b = 0; b < 9; ++b) {
-        const float k = lp9.k[a * 9 + b];
-        if (k != 0.f) row = madd(row, tile[2 * dy + 2 + a][2 * dx + 2 + b], k);
+    __syncthreads();
+    if (oy0 == 0 || ox0 == 0 || oy0 + TY + 2 > h || ox0 + TX + 4 > w) {
+      // the apron positions -2, -1, n, n+1 of each axis that the band pair
+      // reads (rows for columns inside the image, columns for rows inside
+      // it) take hp at their mirrored position, which lies inside the image
+      // and inside the hp tile; no entry written here is read here
+      for (int e = tid; e < 4 * (HP_W + HP_H); e += NT) {
+        if (e < 4 * HP_W) {
+          const int s = e / HP_W;
+          const int c = e - s * HP_W;
+          const int p = s < 2 ? s - 2 : h + s - 2;
+          const int a = p - oy0 + 2;
+          const int q = ox0 - 4 + c;
+          if (a >= 0 && a < HP_H && q >= 0 && q < w) {
+            hpx[a][c] = hpx[reflect101(p, h) - oy0 + 2][c];
+          }
+        } else {
+          const int s = (e - 4 * HP_W) / HP_H;
+          const int a = e - 4 * HP_W - s * HP_H;
+          const int p = s < 2 ? s - 2 : w + s - 2;
+          const int c = p - ox0 + 4;
+          const int y = oy0 - 2 + a;
+          if (c >= 0 && c < HP_W && y >= 0 && y < h) {
+            hpx[a][c] = hpx[a][reflect101(p, w) - ox0 + 4];
+          }
+        }
       }
-      acc = __fadd_rn(acc, row);
+      __syncthreads();
     }
-    sub_out[(size_t)(y / 2) * ((w + 1) / 2) + xx / 2] = acc;
+
+    // 2. the thread's outputs: tile rows y0 .. y0+RB-1, columns 4bq .. 4bq+3,
+    // at hp-tile rows + 2, columns + 4
+    const int bq = tid % BQ;
+    const int y0 = tid / BQ * RB;
+    const int ox = ox0 + 4 * bq;
+    const bool vec_out = vec_out_rows && ox + 4 <= w;
+    float col[RB + 4][4];  // hp-tile rows y0 .. y0+RB+3 at the thread's columns
+    unrolled<0, RB + 4>([&](auto jj) {
+      constexpr int J = decltype(jj)::value;
+      const float4 c = *reinterpret_cast<const float4*>(&hpx[y0 + J][4 * bq + 4]);
+      col[J][0] = c.x;
+      col[J][1] = c.y;
+      col[J][2] = c.z;
+      col[J][3] = c.w;
+    });
+    unrolled<0, RB>([&](auto jj) {
+      constexpr int J = decltype(jj)::value;
+      const float4 lo = *reinterpret_cast<const float4*>(&hpx[y0 + J + 2][4 * bq]);
+      const float4 hi = *reinterpret_cast<const float4*>(&hpx[y0 + J + 2][4 * bq + 8]);
+      const float v[12] = {lo.x, lo.y, lo.z, lo.w, col[J + 2][0], col[J + 2][1],
+                           col[J + 2][2], col[J + 2][3], hi.x, hi.y, hi.z, hi.w};
+      float hv[4], rv[4], iv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hv[i] = v[i + 4];
+        rv[i] = band(v[i + 2], v[i + 3], v[i + 5], v[i + 6]);
+        iv[i] = band(col[J][i], col[J + 1][i], col[J + 3][i], col[J + 4][i]);
+      }
+      const int oy = oy0 + y0 + J;
+      if (oy < h) {
+        const size_t o = (size_t)oy * w + ox;
+        if (vec_out) {
+          store4(hp_out + o, hv);
+          store4(r_out + o, rv);
+          store4(i_out + o, iv);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (ox + i < w) {
+              store(hp_out, o + i, hv[i]);
+              store(r_out, o + i, rv[i]);
+              store(i_out, o + i, iv[i]);
+            }
+          }
+        }
+      }
+    });
+
+    // kept sites (2dr, 4dc) and (2dr, 4dc + 2) of the tile: their windows
+    // start at staged row 2dr + 2, columns 4dc + 4 and 4dc + 6
+#pragma unroll 1
+    for (int d = tid; d < DEC_ITEMS; d += NT) {
+      const int dr = d / BQ;
+      const int dc = d - dr * BQ;
+      float acc[1][2] = {};
+      const float* row0 = &tile[2 * dr + 2][4 * dc + 4];
+      unrolled<0, 9>([&](auto aa) {
+        constexpr int A = decltype(aa)::value;
+        float v[1][12];
+        read_row<1, 12, 0>(row0 + A * LOAD_W, v);
+        float planes[2][6];
+#pragma unroll
+        for (int q = 0; q < 6; ++q) {
+          planes[0][q] = v[0][2 * q];
+          planes[1][q] = v[0][2 * q + 1];
+        }
+        add_row<2, TAPS_DENSE>(A, planes, lp9, acc);
+      });
+      const int sy = oy0 / 2 + dr;
+      const int sx = ox0 / 2 + 2 * dc;
+      if (2 * sy < h) {
+        const size_t o = (size_t)sy * sub_w + sx;
+        if (2 * sx < w) sub_out[o] = acc[0][0];
+        if (2 * sx + 2 < w) sub_out[o + 1] = acc[0][1];
+      }
+    }
   }
 }
 
 constexpr int BAND_RY = 4;
-constexpr int INJECT_RY = 4;
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
@@ -630,7 +912,18 @@ Taps5 taps5(const void* k) {
 // At least this many tall tiles keep two blocks on each of an H100's 132
 // SMs; smaller outputs take RY = 1, and decimate also half-width tiles
 // (16 threads along W), so that its few tiles still spread over the SMs.
+// The fused build and the inject take their small tiles by the same rule.
 constexpr int TALL_GRID_MIN = 2 * 132;
+
+// Output tiles (along W x along H) of the fused build and of the inject.
+constexpr int BUILD_TALL_TX = 64;
+constexpr int BUILD_TALL_TY = 32;
+constexpr int BUILD_SMALL_TX = 32;
+constexpr int BUILD_SMALL_TY = 16;
+constexpr int INJECT_TALL_TX = 128;
+constexpr int INJECT_TALL_TY = 32;
+constexpr int INJECT_SMALL_TX = 64;
+constexpr int INJECT_SMALL_TY = 16;
 
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
@@ -713,24 +1006,123 @@ void band5_out(bool out_bf16, bool round, const void* hp, void* r, void* i, int 
   }
 }
 
-template <bool ROUND>
-void inject_launch(const void* small, void* out, int sh, int sw, int h, int w,
-                   const void* taps, cudaStream_t s) {
-  const dim3 block(BX, BY);
-  const dim3 grid(ceil_div(w, 2 * BX), ceil_div(h, BY * INJECT_RY));
-  inject9_kernel<INJECT_RY, ROUND><<<grid, block, 0, s>>>(
-      static_cast<const float*>(small), static_cast<float*>(out), sh, sw, h, w, taps81(taps));
+template <int WX, int RY, int PAT, bool ROUND>
+void inject_go(const void* small, void* out, int sw, int h, int w, int flags, int negz,
+               const Taps81& taps, cudaStream_t s) {
+  static const int resident = resident_blocks(inject9_kernel<WX, RY, PAT, ROUND>, WX * BY);
+  const int tiles_x = ceil_div(w, 4 * WX);
+  const int tiles = tiles_x * ceil_div(h, BY * RY);
+  inject9_kernel<WX, RY, PAT, ROUND><<<tiles < resident ? tiles : resident, dim3(WX, BY), 0, s>>>(
+      static_cast<const float*>(small), static_cast<float*>(out), sw, h, w, tiles_x, tiles,
+      flags, negz, taps);
 }
 
-template <typename TOut>
-void build_launch(const void* x, void* hp, void* r, void* i, void* sub, int h, int w,
-                  const void* hp9, const void* t5, const void* lp9, cudaStream_t s) {
-  const dim3 block(BX, BY);
-  const dim3 grid(ceil_div(w, BX), ceil_div(h, BY * 4));
-  build_level_kernel<TOut><<<grid, block, 0, s>>>(
+// negz of inject9_kernel: bit 2*py + px is set when every product the plain
+// version adds at a zero site of an output of row parity py and column
+// parity px is -0 (its tap negative) and every tap row has a used tap, i.e.
+// when those products leave a -0 total as it is.
+int inject_negz(const Taps81& t) {
+  int negz = 0;
+  for (int py = 0; py < 2; ++py) {
+    for (int px = 0; px < 2; ++px) {
+      bool neg = true;
+      for (int a = 0; a < 9; ++a) {
+        bool used = false;
+        for (int b = 0; b < 9; ++b) {
+          const float k = t.k[a * 9 + b];
+          if (k == 0.f) continue;
+          used = true;
+          if (((py + a) | (px + b)) & 1) neg = neg && k < 0.f;
+        }
+        neg = neg && used;
+      }
+      if (neg) negz |= 1 << (2 * py + px);
+    }
+  }
+  return negz;
+}
+
+// main_taps: the taps have no zero (the dense 2*LP9 of the collapse), which
+// has its own instantiations, a tall tile and a small one by the output's
+// size; any other bank takes TAPS_ANY. Taps must be finite: the kernel skips
+// the zero sites, where the plain version's 0 * k would be NaN for k = inf.
+template <bool ROUND>
+int inject_launch(const void* small, void* out, int sw, int h, int w, const void* taps,
+                  bool main_taps, cudaStream_t s) {
+  const Taps81 t = taps81(taps);
+  for (float k : t.k) {
+    if (!std::isfinite(k)) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int negz = inject_negz(t);
+  int flags = 0;
+  if (sw % 4 == 0 && aligned(small, 16)) flags |= FLAG_VEC_IN;
+  if (w % 4 == 0 && aligned(out, 16)) flags |= FLAG_VEC_OUT;
+  constexpr int TALL_WX = INJECT_TALL_TX / 4, TALL_RY = INJECT_TALL_TY / BY;
+  constexpr int SMALL_WX = INJECT_SMALL_TX / 4, SMALL_RY = INJECT_SMALL_TY / BY;
+  if (!main_taps) {
+    inject_go<SMALL_WX, SMALL_RY, TAPS_ANY, ROUND>(small, out, sw, h, w, flags, negz, t, s);
+  } else if (ceil_div(w, INJECT_TALL_TX) * ceil_div(h, INJECT_TALL_TY) >= TALL_GRID_MIN) {
+    inject_go<TALL_WX, TALL_RY, TAPS_DENSE, ROUND>(small, out, sw, h, w, flags, negz, t, s);
+  } else {
+    inject_go<SMALL_WX, SMALL_RY, TAPS_DENSE, ROUND>(small, out, sw, h, w, flags, negz, t, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TX, int TY, int NT, int R, int MIN_BLOCKS, typename TOut>
+void build_go(const void* x, void* hp, void* r, void* i, void* sub, int h, int w, int flags,
+              const Taps81& hp9, const Taps5& t5, const Taps81& lp9, cudaStream_t s) {
+  static const int resident =
+      resident_blocks(build_level_kernel<TX, TY, NT, R, MIN_BLOCKS, TOut>, NT);
+  const int tiles_x = ceil_div(w, TX);
+  const int tiles = tiles_x * ceil_div(h, TY);
+  build_level_kernel<TX, TY, NT, R, MIN_BLOCKS, TOut><<<tiles < resident ? tiles : resident, NT,
+                                                         0, s>>>(
       static_cast<const float*>(x), static_cast<TOut*>(hp), static_cast<TOut*>(r),
-      static_cast<TOut*>(i), static_cast<float*>(sub), h, w, taps81(hp9), taps5(t5),
-      taps81(lp9));
+      static_cast<TOut*>(i), static_cast<float*>(sub), h, w, tiles_x, tiles, flags, hp9, t5,
+      lp9);
+}
+
+// The zero patterns build_level_kernel compiles in: HP9 all but the four
+// corners, the band taps all but the centre, 2*LP9 all 81.
+bool build_taps_ok(const Taps81& hp9, const Taps5& t5, const Taps81& lp9) {
+  for (int a = 0; a < 9; ++a) {
+    for (int b = 0; b < 9; ++b) {
+      if ((hp9.k[a * 9 + b] == 0.f) != corner(a, b) || lp9.k[a * 9 + b] == 0.f) return false;
+    }
+  }
+  for (int b = 0; b < 5; ++b) {
+    if ((t5.k[b] == 0.f) != (b == 2)) return false;
+  }
+  return true;
+}
+
+// Tall tiles (256 threads, hp items of 3 rows) where they give at least
+// TALL_GRID_MIN tiles, small ones (128 threads, items of 2 rows) below. The
+// tall instantiation is held to 3 blocks an SM (80 registers, no spill):
+// left alone, ptxas takes 100 and fits 2 (4-5% slower at 2160x3840 in the
+// bf16 arm); 4 blocks spill. The small one fits in 64 registers.
+template <typename TOut>
+int build_launch(const void* x, void* hp, void* r, void* i, void* sub, int h, int w,
+                 const void* hp9_taps, const void* t5_taps, const void* lp9_taps,
+                 cudaStream_t s) {
+  const Taps81 hp9 = taps81(hp9_taps), lp9 = taps81(lp9_taps);
+  const Taps5 t5 = taps5(t5_taps);
+  if (!build_taps_ok(hp9, t5, lp9)) return static_cast<int>(cudaErrorInvalidValue);
+  int flags = 0;
+  if (w % 4 == 0 && aligned(x, 16)) flags |= FLAG_VEC_IN;
+  constexpr size_t OUT4 = 4 * sizeof(TOut);
+  if (w % 4 == 0 && aligned(hp, OUT4) && aligned(r, OUT4) && aligned(i, OUT4)) {
+    flags |= FLAG_VEC_OUT;
+  }
+  if (ceil_div(w, BUILD_TALL_TX) * ceil_div(h, BUILD_TALL_TY) >= TALL_GRID_MIN) {
+    build_go<BUILD_TALL_TX, BUILD_TALL_TY, 256, 3, 3, TOut>(x, hp, r, i, sub, h, w, flags, hp9,
+                                                            t5, lp9, s);
+  } else {
+    build_go<BUILD_SMALL_TX, BUILD_SMALL_TY, 128, 2, 8, TOut>(x, hp, r, i, sub, h, w, flags,
+                                                              hp9, t5, lp9, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -769,22 +1161,25 @@ int lvmt_band5(const void* hp, void* r, void* i, int h, int w, const void* r_tap
   return static_cast<int>(cudaGetLastError());
 }
 
+// sh: small's rows (at least ceil(h/2); the kernel reads no more than
+// those); main_taps: the taps have no zero (the collapse's 2*LP9).
 int lvmt_lp9_inject(const void* small, void* out, int sh, int sw, int h, int w,
-                    const void* taps, int bf16, void* stream) {
+                    const void* taps, int bf16, int main_taps, void* stream) {
+  (void)sh;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) inject_launch<true>(small, out, sh, sw, h, w, taps, s);
-  else inject_launch<false>(small, out, sh, sw, h, w, taps, s);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? inject_launch<true>(small, out, sw, h, w, taps, main_taps, s)
+              : inject_launch<false>(small, out, sw, h, w, taps, main_taps, s);
 }
 
 // hp, r, i: h x w (bf16 when out_bf16); sub: ceil(h/2) x ceil(w/2) floats.
+// hp9, t5, lp9 must have the zero patterns of HP9, the band taps and 2*LP9
+// (cudaErrorInvalidValue otherwise, nothing launched).
 int lvmt_riesz_build_level(const void* x, void* hp, void* r, void* i, void* sub, int h,
                            int w, const void* hp9, const void* t5, const void* lp9,
                            int out_bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (out_bf16) build_launch<__nv_bfloat16>(x, hp, r, i, sub, h, w, hp9, t5, lp9, s);
-  else build_launch<float>(x, hp, r, i, sub, h, w, hp9, t5, lp9, s);
-  return static_cast<int>(cudaGetLastError());
+  return out_bf16 ? build_launch<__nv_bfloat16>(x, hp, r, i, sub, h, w, hp9, t5, lp9, s)
+                  : build_launch<float>(x, hp, r, i, sub, h, w, hp9, t5, lp9, s);
 }
 
 }  // extern "C"

@@ -31,13 +31,18 @@ riesz_build_level is one pass over an octave: hp = octave (*) HP9, its Riesz
 pair, and the decimated 2*LP9 octave. It computes what conv9, band5 and
 lp9_decimate compute, in the same order, so it equals their composition bit
 for bit (hp's apron is taken by mirroring hp's index, as band5 reads it, not
-from the padded octave as the TPU kernel does). Its operands are always f32.
+from the padded octave as the TPU kernel does; band5's kernel starts its sums
+from +0, so its r and i match up to the sign of a zero). Its operands are
+always f32. Every kernel here but band5's matches its plain version's sign of
+a zero too.
 
-conv9 and lp9_decimate tell their kernel whether the taps they pass have
-the zero pattern of the bank each runs on the main path (``tap_pattern``:
-conv9's high-pass uses all but the corners, decimate's 2*LP9 all 81), which
-has an instantiation that skips those zeros at compile time; any other bank
-takes the kernel's run-time test of each tap. The design notes (tiles, reflect-101 by index
+conv9, lp9_decimate and lp9_inject tell their kernel whether the taps they
+pass have the zero pattern of the bank each runs on the main path
+(``tap_pattern``: conv9's high-pass uses all but the corners, decimate's and
+inject's 2*LP9 all 81), which has an instantiation that skips those zeros at
+compile time; any other bank takes the kernel's run-time test of each tap.
+riesz_build_level always passes the same three banks, whose patterns its
+kernel compiles in. The design notes (tiles, reflect-101 by index
 mirroring, the exact tap order) are at the top of the CUDA source. Unlike the
 TPU kernels, these take any side of at least 5 (reflect-101 with a 4-px
 reach), odd sides included; riesz_build_level takes sides of at least 16, the
@@ -79,10 +84,17 @@ MIN_FUSED_SIDE = 16  # riesz_build_level, the reference's MIN_FUSED_DIM
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
+# Output tiles (rows, columns) of the fused build's and the inject's kernels
+# (csrc/stencils.cu BUILD_*_TX/TY, INJECT_*_TX/TY): the tall tiles run where
+# they give at least TALL_GRID_MIN tiles, the small ones below.
+BUILD_TILES = {"tall": (32, 64), "small": (16, 32)}
+INJECT_TILES = {"tall": (32, 128), "small": (16, 64)}
+TALL_GRID_MIN = 2 * 132
+
 # The zero pattern of each function's main-path bank, for which its kernel
 # has an instantiation (csrc/stencils.cu); the kernel tests any other bank's
 # taps as it runs.
-MAIN_TAPS = {"conv9": "no_corners", "lp9_decimate": "dense"}
+MAIN_TAPS = {"conv9": "no_corners", "lp9_decimate": "dense", "lp9_inject": "dense"}
 _NO_CORNERS = np.ones((9, 9), bool)
 _NO_CORNERS[::8, ::8] = False
 
@@ -108,6 +120,53 @@ def _kernel_taps(key: bytes, bf16: bool, fn: str) -> Tuple[np.ndarray, bool]:
     if bf16:
         taps = round_taps_bf16(taps)
     return taps, tap_pattern(taps) == MAIN_TAPS[fn]
+
+
+def _tall_shape(tiles) -> Tuple[int, int]:
+    """The smallest aligned shape of 17 x 16 tall tiles: at least
+    TALL_GRID_MIN of them, so the tall instantiation runs."""
+    th, tw = tiles["tall"]
+    assert 17 * 16 >= TALL_GRID_MIN
+    return 17 * th, 16 * tw
+
+
+def build_level_shapes():
+    """Shapes that reach every edge of riesz_build_level's tiles
+    (BUILD_TILES): the smallest side (16) at every width residue mod 4
+    (16-byte rows or not); one small tile, one more row, one more column, two
+    and a ragged third each way; tall tiles (TALL_GRID_MIN or more) aligned,
+    one row more and at every width residue; odd shapes; 1080p's level 4 and
+    the five band levels of 2160x3840 (where blocks walk and prefetch several
+    tiles each)."""
+    sh, sw = BUILD_TILES["small"]
+    th, tw = _tall_shape(BUILD_TILES)
+    shapes = [(16, 16 + m) for m in range(4)]
+    shapes += [(sh, sw), (sh + 1, sw), (sh, sw + 1), (2 * sh + 1, 2 * sw + 1)]
+    shapes += [(th, tw), (th + 1, tw)] + [(th, tw + m) for m in range(1, 4)]
+    shapes += [(33, 257), (97, 201), (135, 241), (68, 120)]
+    return shapes + [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240)]
+
+
+def inject9_shapes():
+    """(small shape, output shape) pairs that reach every edge of
+    lp9_inject's tiles (INJECT_TILES): the smallest sides (small images of
+    5 rows or columns); one small tile, one more row, one more column, two
+    and a ragged third each way; widths of every residue mod 4 (16-byte
+    output rows or not) and small images with 16-byte rows under odd
+    outputs, and the reverse; a small image larger than the output needs; tall tiles
+    (TALL_GRID_MIN or more) aligned and one element off; odd collapse
+    targets; the collapse onto each band level of 2160x3840."""
+    half = lambda hw: ((hw[0] + 1) // 2, (hw[1] + 1) // 2)
+    sh, sw = INJECT_TILES["small"]
+    th, tw = _tall_shape(INJECT_TILES)
+    outs = [(9, 9), (9, 16), (16, 9), (sh, sw), (sh + 1, sw), (sh, sw + 1),
+            (2 * sh + 1, 2 * sw + 1)]
+    outs += [(24, 2 * sw + m) for m in range(4)] + [(sh, sw - 1)]
+    outs += [(th, tw), (th + 1, tw + 1), (th, tw - 1), (th - 1, tw + 2)]
+    outs += [(33, 257), (97, 201), (135, 241), (68, 120)]
+    pairs = [(half(o), o) for o in outs] + [((70, 124), (135, 241)), ((9, 33), (sh, sw))]
+    levels = [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]
+    return pairs + [(levels[i + 1], levels[i]) for i in range(len(levels) - 1)]
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
@@ -183,7 +242,7 @@ def _lib() -> ctypes.CDLL:
         "lvmt_conv9": [p, p, i, i, p, i, i, i, p],
         "lvmt_lp9_decimate": [p, p, i, i, p, i, i, p],
         "lvmt_band5": [p, p, p, i, i, p, p, i, i, i, p],
-        "lvmt_lp9_inject": [p, p, i, i, i, i, p, i, p],
+        "lvmt_lp9_inject": [p, p, i, i, i, i, p, i, i, p],
         "lvmt_riesz_build_level": [p, p, p, p, p, i, i, p, p, p, i, p],
     }
     for name, argtypes in signatures.items():
@@ -286,10 +345,10 @@ def lp9_inject(small: torch.Tensor, k9, out_hw: Tuple[int, int], *,
         raise ValueError(f"lp9_inject: target {out_hw} does not fit source {(sh, sw)}")
     if small.device.type == "cpu":
         return lp9_inject_plain(small, taps.reshape(9, 9), (h, w), bf16)
-    ktaps = round_taps_bf16(taps) if bf16 else taps
+    ktaps, main_taps = _kernel_taps(taps.tobytes(), bf16, "lp9_inject")
     out = torch.empty((h, w), dtype=small.dtype, device=small.device)
     _launch("lp9_inject", bf16, small.device, small.data_ptr(), out.data_ptr(), sh, sw, h, w,
-            ktaps.ctypes.data, int(bf16))
+            ktaps.ctypes.data, int(bf16), int(main_taps))
     return out
 
 

@@ -143,7 +143,7 @@ def test_inject_stencil_equals_plain_version(cuda, small, out):
         with pytest.raises(ValueError):
             stencils.lp9_inject(s, LP2, out)
         return
-    _same(stencils.lp9_inject(s, LP2, out), stencils.lp9_inject_plain(s, LP2, out))
+    _bits(stencils.lp9_inject(s, LP2, out), stencils.lp9_inject_plain(s, LP2, out))
 
 
 def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
@@ -329,6 +329,90 @@ def test_build_level_equals_plain_version_and_the_three_stencils(cuda, shape, ou
     od = stencils.DTYPES[out_dtype]
     for g, k in zip(got, (hp.to(od), r.to(od), i.to(od), stencils.lp9_decimate(x, LP2))):
         _same(g, k)
+
+
+def _zeros_and_tiny(x):
+    """x with a band of zeros (signed zeros in the outputs), a patch of -0
+    and a patch of tiny and subnormal values (products below f32's smallest
+    subnormal, bf16 operands included), where the shape allows."""
+    x = x.clone()
+    h, w = x.shape
+    x[: h // 3] = 0.0
+    x[h // 3:, : min(3, w)] = -0.0
+    if h > 8 and w > 12:
+        x[h // 2: h // 2 + 4, 4:12] = torch.tensor([1e-30, -3e-36, 1e-39, -1e-42],
+                                                   device=x.device)[:, None]
+    return x
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", stencils.build_level_shapes())
+def test_build_level_tiles_equal_plain_version_bit_for_bit(cuda, shape, offset):
+    """K5 at every edge of its tiles (both instantiations, 16-byte staging
+    and stores or not, blocks that walk several tiles), the octave aligned
+    and one element off, both output dtypes: bit for bit with the plain
+    version, the sign of a zero included, and equal to K1+K2+K3 (band5's
+    kernel starts from +0, so up to the sign of a zero)."""
+    x = _zeros_and_tiny(_plane(shape, cuda))
+    if offset:
+        x = _misaligned(x)
+    before = stencils.LAUNCHES["riesz_build_level"]
+    hp = stencils.conv9(x, RIESZ_HIGHPASS_9x9)
+    three = (hp, *stencils.band5(hp, RIESZ_BAND_KERNEL), stencils.lp9_decimate(x, LP2))
+    for od in ("f32", "bf16"):
+        got = stencils.riesz_build_level(x, out_dtype=od)
+        ref = stencils.riesz_build_level_plain(x, od)
+        for g, r, k in zip(got, ref, three):
+            _bits(g, r)
+            _same(g, k.to(g.dtype))
+    torch.cuda.synchronize()
+    assert stencils.LAUNCHES["riesz_build_level"] == before + 2
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("small,out", stencils.inject9_shapes())
+def test_inject9_tiles_equal_plain_version_bit_for_bit(cuda, small, out, offset):
+    """K4 and its bf16 arm at every edge of their tiles (tall and small, the
+    dense bank's instantiations and the run-time taps of any other), the
+    small image aligned and one element off, with zeros, -0 and tiny and
+    subnormal pixels: bit for bit with the plain version, the sign of a zero
+    included, under the collapse's 2*LP9, an all-negative dense bank (every
+    zero site's product -0) and a random bank with zeros."""
+    rng = np.random.default_rng(small[0] * 1000 + small[1])
+    kr = rng.standard_normal((9, 9)).astype(np.float32)
+    kr.flat[rng.choice(81, 9, replace=False)] = 0.0
+    s = _zeros_and_tiny(_plane(small, cuda))
+    if offset:
+        s = _misaligned(s)
+    before = (stencils.LAUNCHES["lp9_inject"], stencils.LAUNCHES_BF16["lp9_inject"])
+    for k9 in (LP2, -np.abs(LP2), kr):
+        for bf16 in (False, True):
+            _bits(stencils.lp9_inject(s, k9, out, bf16=bf16),
+                  stencils.lp9_inject_plain(s, k9, out, bf16))
+    torch.cuda.synchronize()
+    assert (stencils.LAUNCHES["lp9_inject"], stencils.LAUNCHES_BF16["lp9_inject"]) == (
+        before[0] + 3, before[1] + 3)
+
+
+def test_build_and_inject_refuse_taps_they_cannot_match(cuda):
+    """K5's launcher refuses banks without the zero patterns it compiles in,
+    K4's non-finite taps (the plain version's 0 * inf at a zero site is
+    NaN): a CUDA error, nothing launched, no plain version."""
+    import ctypes
+
+    x = _plane((40, 60), cuda)
+    outs = [torch.empty_like(x) for _ in range(3)] + [torch.empty((20, 30), device=cuda)]
+    banks = [np.ascontiguousarray(np.asarray(k, np.float32).reshape(-1))
+             for k in (LP2, RIESZ_BAND_KERNEL, LP2)]
+    err = stencils._lib().lvmt_riesz_build_level(
+        x.data_ptr(), *(o.data_ptr() for o in outs), 40, 60, *(b.ctypes.data for b in banks),
+        0, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert err != 0
+    bad = LP2.copy()
+    bad[0, 0] = np.inf
+    with pytest.raises(RuntimeError, match="cudaError"):
+        stencils.lp9_inject(x, bad, (79, 120))
+    torch.cuda.synchronize()
 
 
 LEVEL_SHAPES = [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]

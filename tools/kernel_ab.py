@@ -5,18 +5,20 @@ commit's on one CUDA card, and count the SASS of their CUDA kernels.
     git archive <commit> | tar -x -C build/parent
     python3 tools/kernel_ab.py build/parent [--kernels conv9,lp9_decimate] \
         [--sass stencils:stencil9_kernel]
+    python3 tools/kernel_ab.py build/parent --sass "stencils:build_level_kernel|inject9_kernel" \
+        --kernels riesz_build_level,riesz_build_level[bf16 out],lp9_inject,lp9_inject[bf16],conv9,band5,lp9_decimate
     python3 tools/kernel_ab.py build/parent --sass tail:amplify13_kernel \
         --kernels riesz_amplify_mxu,riesz_amplify_fused[preweighted],riesz_amplify_mxu[fast],riesz_level_mxu
 
 The port under PARENT and the port of this checkout each run in a process of
 their own, in the order parent, change, change, parent. Each process times
 every kernel named in --kernels (default: all of KERNELS) at every band level
-of 2160x3840 levels=6, by CUDA events over back-to-back calls (``ms``, the
+of 2160x3840 levels=6 and at 1080x1920's level 4 (68x120), by CUDA events over back-to-back calls (``ms``, the
 wrapper's host cost included, as chip_smoke.py's ``ms``) and by CUDA graph
 replay (``graph_ms``, the kernel alone), with chip_smoke.py's timers of this
 checkout; and it counts the SASS opcodes (``cuobjdump -sass``, static counts)
 of every function of the built library whose name holds the text after the
-colon in --sass, with the seconds its build took. Each measurement is one JSON line tagged with its tree; the
+colon in --sass (several joined by ``|``), with the seconds its build took. Each measurement is one JSON line tagged with its tree; the
 lines after them give, for each kernel and level, both trees' mean times and
 the ratio change / parent of the graph times.
 """
@@ -75,6 +77,9 @@ def _cases(st, tl, x, small, tail_planes, h, w):
         "lp9_decimate": lambda: st.lp9_decimate(x, lp2),
         "lp9_decimate[bf16]": lambda: st.lp9_decimate(x, lp2, bf16=True),
         "lp9_inject": lambda: st.lp9_inject(small, lp2, (h, w)),
+        "lp9_inject[bf16]": lambda: st.lp9_inject(small, lp2, (h, w), bf16=True),
+        "riesz_build_level": lambda: st.riesz_build_level(x),
+        "riesz_build_level[bf16 out]": lambda: st.riesz_build_level(x, out_dtype="bf16"),
         "riesz_amplify_mxu": lambda: tl.riesz_amplify_mxu(*six, 50.0, 1.2),
         "riesz_amplify_fused[preweighted]":
             lambda: tl.riesz_amplify_fused(*weighted, 50.0, 1.2, preweighted=True),
@@ -86,13 +91,14 @@ def _cases(st, tl, x, small, tail_planes, h, w):
 
 
 KERNELS = ("conv9", "conv9[bf16]", "conv9[bf16 to f32]", "band5", "lp9_decimate",
-           "lp9_decimate[bf16]", "lp9_inject", "riesz_amplify_mxu",
+           "lp9_decimate[bf16]", "lp9_inject", "lp9_inject[bf16]", "riesz_build_level",
+           "riesz_build_level[bf16 out]", "riesz_amplify_mxu",
            "riesz_amplify_fused[preweighted]", "riesz_amplify_mxu[fast]", "riesz_level_mxu")
 
 
-def sass_counts(lib, name: str) -> list:
+def sass_counts(lib, names: str) -> list:
     """Static SASS opcode counts of each function of a built library whose
-    mangled name holds ``name``: every opcode, and the totals of the f32,
+    mangled name holds one of the ``|``-separated ``names``: every opcode, and the totals of the f32,
     special-function, predicate and memory classes a kernel's cost is made
     of."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -102,7 +108,7 @@ def sass_counts(lib, name: str) -> list:
     for line in sass.splitlines():
         fn = re.match(r"\s*Function : (\S+)", line)
         if fn:
-            cur = fn.group(1) if name in fn.group(1) else None
+            cur = fn.group(1) if any(n in fn.group(1) for n in names.split("|")) else None
             if cur:
                 funcs[cur] = {}
             continue
@@ -110,7 +116,7 @@ def sass_counts(lib, name: str) -> list:
         if cur and op:
             funcs[cur][op.group(1)] = funcs[cur].get(op.group(1), 0) + 1
     if not funcs:
-        raise AssertionError(f"no function named like {name} in {lib}")
+        raise AssertionError(f"no function named like {names} in {lib}")
     names = list(funcs)
     filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
     try:
@@ -156,14 +162,16 @@ def report(tree: str, kernels, sass: str) -> int:
             smoke.log(phase="sass", tree=tree, **row)
     rng = np.random.default_rng(smoke.SEED + 9)
     sizes = riesz_level_sizes(2160, 3840, 6)
-    for lvl, (h, w) in enumerate(sizes[:-1]):
+    flagship = riesz_level_sizes(1080, 1920, 6)  # level 4 (68x120): K5 on the default path
+    levels = [(lvl, hw, sizes[lvl + 1]) for lvl, hw in enumerate(sizes[:-1])]
+    for lvl, (h, w), small_hw in levels + [("1080p:4", flagship[4], flagship[5])]:
         x = torch.from_numpy(rng.random((h, w), dtype=np.float32) * 100.0).to(dev)
-        small = torch.from_numpy(rng.random(sizes[lvl + 1], dtype=np.float32) * 100.0).to(dev)
+        small = torch.from_numpy(rng.random(small_hw, dtype=np.float32) * 100.0).to(dev)
         tail_planes = [torch.from_numpy(rng.standard_normal((h, w), dtype=np.float32)).to(dev)
                        for _ in range(16)]
         tail_planes[0] = tail_planes[0].abs()
         cases = _cases(st, tl, x, small, tail_planes, h, w)
-        iters = 50 if lvl == 0 else 200
+        iters = 50 if h * w > 4e6 else 200
         for k in kernels:
             smoke.log(phase="time", tree=tree, kernel=k, level=lvl, shape=[h, w],
                       ms=smoke.cuda_ms(cases[k], iters), graph_ms=smoke.graph_ms(cases[k], iters))
@@ -189,7 +197,7 @@ def main() -> int:
     ap.add_argument("parent", nargs="?", help="a copy of an earlier commit's tree")
     ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--sass", default="stencils:stencil9_kernel",
-                    help="source:function-name text; empty for none")
+                    help="source:function-name text (several joined by |); empty for none")
     ap.add_argument("--report", metavar="TREE", help=argparse.SUPPRESS)
     args = ap.parse_args()
     kernels = [k for k in args.kernels.split(",") if k]
