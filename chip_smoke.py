@@ -12,9 +12,13 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
   1. kernels: each stencil kernel (ops/hopper/stencils.py) against its plain
      PyTorch version on the card, at odd shapes, at every level shape of a
      2160x3840 levels=6 frame and (conv9, lp9_decimate, lp9_inject) at every
-     edge of their tiles and with random taps; times by CUDA events over
-     back-to-back calls, the wrapper's host cost included (``ms``: kernel, plain version,
-     one PyTorch library call where one computes the same function), and the
+     edge of their tiles and with random taps; band5 bit for bit at every
+     edge of its tiles (stencils.band5_shapes()), and all eight of its
+     instantiations so (``band5_exact``: aligned and one element off, with
+     zeros, -0 and subnormal pixels, the main bank and two others); times
+     by CUDA events over back-to-back calls, the wrapper's host cost
+     included (``ms``: kernel, plain version, one PyTorch library call
+     where one computes the same function), and the
      kernel alone by CUDA graph replay (``graph_ms``); the bound from
      published H100 SXM peaks, and for the 9x9 stencils and the inject a
      second computed bound, the exactness floor (``exact_floor_ms``,
@@ -44,7 +48,8 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      level 4) and under the fast flags;
   6. the fused build (K5, riesz_build_level) against its plain version at odd
      shapes, 68x120, every 4K band level and every edge of its tiles (bit
-     for bit, the sign of a zero included), timed beside K1+K2+K3 at
+     for bit, the sign of a zero included, and so against K1+K2+K3), timed
+     beside K1+K2+K3 at
      the same shape by events and by graph replay, with its exactness floor;
      every bf16 arm of K1-K4 and K6 against its plain version
      (the 9x9 arms also at every edge of their tiles, the amplify kernel's
@@ -277,7 +282,7 @@ def kernel_phase(dev, st, sizes):
                    lambda x: st.conv9_plain(x, RIESZ_HIGHPASS_9x9), s) for s in s9_shapes]
         + [(lambda x: st.conv9(x, kr), lambda x: st.conv9_plain(x, kr), s) for s in any_shapes],
         "band5": [(lambda x: st.band5(x, RIESZ_BAND_KERNEL),
-                   lambda x: st.band5_plain(x, RIESZ_BAND_KERNEL), s) for s in build_shapes],
+                   lambda x: st.band5_plain(x, RIESZ_BAND_KERNEL), s) for s in st.band5_shapes()],
         "lp9_decimate": [(lambda x: st.lp9_decimate(x, LOWPASS_2X),
                           lambda x: st.lp9_decimate_plain(x, LOWPASS_2X), s)
                          for s in s9_shapes]
@@ -291,8 +296,9 @@ def kernel_phase(dev, st, sizes):
     }
     # The kernels keep every product and sum apart in the plain version's
     # order, so they should agree exactly; the stated tolerance leaves room
-    # for nothing but a last-bit difference.
+    # for nothing but a last-bit difference. band5 is also held bit for bit.
     tol_rel = 1e-6
+    bit_equal = {"band5"}
     errs = {}
     for name, runs in cases.items():
         worst = 0.0
@@ -309,11 +315,92 @@ def kernel_phase(dev, st, sizes):
                 bar = tol_rel * max(1.0, float(r.abs().max()))
                 if not err <= bar:
                     raise AssertionError(f"{name} at {shape}: max |kernel - plain| {err} > {bar}")
+                if name in bit_equal and not same_bits(g, r):
+                    raise AssertionError(f"{name} at {shape}: not bit-equal to its plain version")
                 worst = max(worst, err)
         errs[name] = worst
         log(phase="kernel_check", kernel=name, shapes=len(runs), max_abs_err=worst,
-            tolerance=f"{tol_rel} x max(1, max|plain|)")
+            tolerance=f"{tol_rel} x max(1, max|plain|)"
+            + ("; bit for bit" if name in bit_equal else ""), bit_equal=name in bit_equal)
     return errs
+
+
+def same_bits(got, ref) -> bool:
+    """Bit-equal, the sign of a zero included."""
+    import torch
+
+    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return (got.shape == ref.shape and got.dtype == ref.dtype
+            and torch.equal(got.view(as_int[got.dtype]), ref.view(as_int[ref.dtype])))
+
+
+def zeros_and_tiny(x):
+    """x with a band of zeros (signed zeros in the outputs), a patch of -0
+    and a patch of tiny and subnormal values (products below f32's smallest
+    subnormal, bf16 operands included), where the shape allows."""
+    import torch
+
+    x = x.clone()
+    h, w = x.shape
+    x[: h // 3] = 0.0
+    x[h // 3:, : min(3, w)] = -0.0
+    if h > 8 and w > 12:
+        x[h // 2: h // 2 + 4, 4:12] = torch.tensor([1e-30, -3e-36, 1e-39, -1e-42],
+                                                   device=x.device)[:, None]
+    return x
+
+
+def misaligned(x):
+    """A contiguous copy of x one element past an aligned start."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def band5_exact(dev, st):
+    """All eight band5 instantiations (f32 or bf16 input, f32 or bf16
+    outputs, f32 or bf16 operands) against the plain version bit for bit,
+    the sign of a zero included, at every shape of st.band5_shapes(), the
+    plane aligned and one element off, with zeros, -0 and tiny and subnormal
+    pixels, under the main bank, a random bank with a zero and a bank of the
+    main pattern with taps below 2^-7 (the last two: run-time taps)."""
+    import torch
+    from live_video_magnification_tpu_torch.ops.kernels import RIESZ_BAND_KERNEL
+
+    rng = np.random.default_rng(SEED + 12)
+    plane = lambda h, w: torch.from_numpy(rng.random((h, w), dtype=np.float32) * 100.0
+                                          - 20.0).to(dev)
+    small = np.array([-0.2, -1e-3, 0.0, 1e-3, 0.2], np.float32)
+    shapes = st.band5_shapes()
+    calls = 0
+    for shape in shapes:
+        kr = rng.standard_normal(5).astype(np.float32)
+        kr[rng.integers(5)] = 0.0
+        x = zeros_and_tiny(plane(*shape))
+        for offset in (0, 1):
+            for dtype in (torch.float32, torch.bfloat16):
+                hp = x.to(dtype)
+                if offset:
+                    hp = misaligned(hp)
+                for bank, taps in (("main", RIESZ_BAND_KERNEL), ("random", kr), ("small", small)):
+                    for bf16 in (False, True):
+                        for od in ("f32", "bf16"):
+                            got = st.band5(hp, taps, bf16=bf16, out_dtype=od)
+                            ref = st.band5_plain(hp, taps, bf16, od)
+                            torch.cuda.synchronize()
+                            for part, g, r in zip("ri", got, ref):
+                                if not same_bits(g, r):
+                                    raise AssertionError(
+                                        f"band5 {part} at {shape} (offset {offset}, {dtype}, "
+                                        f"{bank} bank, bf16 {bf16}, out {od}): not bit-equal "
+                                        "to its plain version")
+                            calls += 1
+    log(phase="band5_exact", instantiations=8, banks=["main", "random", "small taps"],
+        offsets=[0, 1], shapes=[list(s) for s in shapes], calls=calls, max_abs_err=0.0,
+        tolerance="bit for bit, the sign of a zero included")
 
 
 def time_phase(dev, st, sizes):
@@ -902,21 +989,32 @@ def build_kernel_check(dev, st, sizes):
     """K5 against its plain version on the card, both output dtypes, at odd
     shapes, 1080p's level 4, every 4K band level and every shape of
     st.build_level_shapes() (the edges of its tiles): every output
-    bit-equal, the sign of a zero included, and max |kernel - plain|."""
+    bit-equal to the plain version's and to K1+K2+K3's, the sign of a zero
+    included, and max |kernel - plain|."""
     import torch
+    from live_video_magnification_tpu_torch.ops.kernels import (
+        LOWPASS_2X,
+        RIESZ_BAND_KERNEL,
+        RIESZ_HIGHPASS_9x9,
+    )
 
     rng = np.random.default_rng(SEED + 5)
     shapes = [(16, 16), (33, 257), (97, 201), (135, 241), (68, 120)] + list(sizes[:-1])
     shapes += [s for s in st.build_level_shapes() if s not in shapes]
-    as_int = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
     worst = 0.0
     for shape in shapes:
         x = torch.from_numpy(rng.random(shape, dtype=np.float32) * 100.0).to(dev)
         x[: shape[0] // 3] = 0.0  # signed zeros in every output
+        hp = st.conv9(x, RIESZ_HIGHPASS_9x9)
+        three = (hp, *st.band5(hp, RIESZ_BAND_KERNEL), st.lp9_decimate(x, LOWPASS_2X))
         for od in ("f32", "bf16"):
             got = st.riesz_build_level(x, out_dtype=od)
             ref = st.riesz_build_level_plain(x, od)
             torch.cuda.synchronize()
+            for g, k in zip(got, three):
+                if not same_bits(g, k.to(g.dtype)):
+                    raise AssertionError(f"riesz_build_level at {shape} ({od}): not bit-equal "
+                                         "to K1+K2+K3")
             for g, r in zip(got, ref):
                 if g.shape != r.shape or g.dtype != r.dtype:
                     raise AssertionError(f"riesz_build_level at {shape}: {g.shape} {g.dtype} "
@@ -927,12 +1025,12 @@ def build_kernel_check(dev, st, sizes):
                     raise AssertionError(f"riesz_build_level at {shape} ({od}): max |kernel - "
                                          f"plain| {err} > {bar}")
                 worst = max(worst, err)
-                if not torch.equal(g.view(as_int[g.dtype]), r.view(as_int[r.dtype])):
+                if not same_bits(g, r):
                     raise AssertionError(f"riesz_build_level at {shape} ({od}): not bit-equal "
                                          "to its plain version")
     log(phase="build_kernel_check", kernel="riesz_build_level", shapes=[list(s) for s in shapes],
         out_dtypes=["f32", "bf16"], max_abs_err=worst, bit_equal=True,
-        tolerance="1e-06 x max(1, max|plain|); bit for bit")
+        bit_equal_to_k1_k2_k3=True, tolerance="1e-06 x max(1, max|plain|); bit for bit")
     return worst
 
 
@@ -1413,6 +1511,7 @@ def main() -> int:
 
     sizes = riesz_level_sizes(2160, 3840, 6)
     errs = kernel_phase(dev, st, sizes)
+    band5_exact(dev, st)
     times = time_phase(dev, st, sizes)
     tail_errs = tail_kernel_check(dev, tl, sizes)
     tail_times = tail_kernel_time(dev, tl, sizes)

@@ -37,11 +37,13 @@
 // (__fmul_rn / __fadd_rn, which the compiler never contracts into an FMA),
 // rows summed in order, taps left to right, zero taps skipped. That is the
 // order of the plain PyTorch version (ops/conv.py), so the kernels agree with
-// it bit for bit. conv9, lp9_decimate, lp9_inject and the fused build start
-// each row sum from its first product and the total from its first row, as
-// the plain version does, so the sign of a zero matches too (inject adds +0
-// where the plain version's zero-site products would; see inject9_kernel);
-// band5 starts its sums from +0 and matches up to the sign of a zero.
+// it bit for bit. Every kernel starts each row sum from its first product
+// and the total from its first row, as the plain version does, so the sign
+// of a zero matches too (inject adds +0 where the plain version's zero-site
+// products would; see inject9_kernel). Where both factors of a product are
+// bf16 values and the taps lie in 2^-7..1 (band5's r in the bf16 arm,
+// checked on the host), the product is exact in f32, so a fused multiply-add
+// rounds only the sum and gives the same bits.
 //
 // The exactness floor: rounding each product and sum alone costs two issue
 // slots per used tap where an FMA would take one, at most 128 f32
@@ -86,24 +88,26 @@
 //     that still gives two blocks an SM, and RY = 1 on smaller levels
 //     (decimate there with half-width tiles, so its few tiles spread over
 //     the SMs); any other bank always takes RY = 1.
-// The fused build (build_level_kernel) and the inject (inject9_kernel) use
-// the same machinery: compile-time tap patterns (HP9 without corners and
-// 2*LP9 dense, the band taps' zero centre; inject's dense bank), register
-// blocks of 4 outputs along W fed by 16-byte (8-byte for inject) shared
-// reads, 16-byte staging with reflect-101 only outside the image, blocks that
-// walk tiles and prefetch, a tall tile and a small one by the same size rule.
+// The fused build (build_level_kernel), the inject (inject9_kernel) and the
+// band pair (band5_kernel) use the same machinery: compile-time tap patterns
+// (HP9 without corners and 2*LP9 dense, the band taps' zero centre; inject's
+// dense bank), register blocks of 4 outputs along W fed by 16-byte (8-byte
+// for inject) shared reads, 16-byte staging with reflect-101 only outside
+// the image, blocks that walk tiles and prefetch, a tall tile and a small
+// one by the same size rule.
 // The fused build computes hp on its tile plus a 2-px apron (64x32 outputs,
 // hp on 72x36: 1.27x) and copies the apron outside the image from its
 // mirror; its band pair and decimate read the shared tiles. The inject
 // stages only the even sites of the injected array and sums only the taps
 // that meet them.
+// band5 moves 12 bytes a pixel (6 in the bf16 arm) and issues ~15
+// instructions an output: it is bound by bytes. A thread's 4 x RY outputs
+// read each tile row of its columns once (16 bytes) for the i sums of every
+// output row that uses it, and 16 bytes left and right of an output row for
+// r; bf16 input is staged 8 elements a chunk and widened in shared memory.
 // No tensor cores: their sums take another order, which would break the
 // agreement with the plain versions, K5's with K1+K2+K3, and the sharded
 // step's 0 LSB.
-//
-// band5 stages one input tile per block through shared memory and writes
-// each output once, RY outputs down a column from a row of tile values
-// loaded into registers.
 //
 // C interface: pointers and the stream as void*, sizes as int, taps as a host
 // pointer copied into a by-value kernel parameter. Each function returns
@@ -249,26 +253,65 @@ __device__ __forceinline__ void add_row(int r, const float (&v)[S][NV], const Ta
   }
 }
 
-// Loads chunk U*NT + tid of a tile's N_CHUNKS 4-column chunks (Q to a row;
-// rows from iy0, columns from ix0, a multiple of 4) of x into buf[U]: one
-// 16-byte load inside the image, four loads mirrored by index (reflect-101)
-// outside it, only at the left and right borders; rows mirrored by index,
-// once a chunk. w % 4 == 0.
-template <int NT, int Q, int N_CHUNKS, int CHUNKS>
-__device__ __forceinline__ void fetch16(float4 (&buf)[CHUNKS], const float* __restrict__ x,
-                                        int h, int w, int iy0, int ix0, int tid) {
+// Sixteen bytes of a row at columns c .. c+3 (f32) or c .. c+7 (bf16),
+// each mirrored by index (reflect-101): a chunk outside the image.
+__device__ __forceinline__ float4 gather16(const float* row, int c, int w) {
+  return make_float4(row[reflect101(c, w)], row[reflect101(c + 1, w)],
+                     row[reflect101(c + 2, w)], row[reflect101(c + 3, w)]);
+}
+__device__ __forceinline__ uint4 gather16(const __nv_bfloat16* row, int c, int w) {
+  const unsigned short* u = reinterpret_cast<const unsigned short*>(row);
+  auto pair = [&](int k) {
+    return static_cast<unsigned>(u[reflect101(c + k, w)]) |
+           (static_cast<unsigned>(u[reflect101(c + k + 1, w)]) << 16);
+  };
+  return make_uint4(pair(0), pair(2), pair(4), pair(6));
+}
+
+// The register type of a 16-byte chunk of T: four f32, or eight bf16 kept
+// as raw bits until they are widened into shared memory.
+template <typename T>
+struct Chunk16 {
+  using type = float4;
+};
+template <>
+struct Chunk16<__nv_bfloat16> {
+  using type = uint4;
+};
+
+// A chunk written to shared memory as f32 (bf16 widened exactly: its bits
+// are the high half of the f32's).
+__device__ __forceinline__ void put16(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+__device__ __forceinline__ void put16(float* dst, uint4 v) {
+  auto lo = [](unsigned u) { return __uint_as_float(u << 16); };
+  auto hi = [](unsigned u) { return __uint_as_float(u & 0xffff0000u); };
+  *reinterpret_cast<float4*>(dst) = make_float4(lo(v.x), hi(v.x), lo(v.y), hi(v.y));
+  *reinterpret_cast<float4*>(dst + 4) = make_float4(lo(v.z), hi(v.z), lo(v.w), hi(v.w));
+}
+
+// Loads chunk U*NT + tid of a tile's N_CHUNKS 16-byte chunks (Q to a row;
+// rows from iy0, columns from ix0, a multiple of the 4 f32 or 8 bf16
+// elements of a chunk) of x into buf[U]: one 16-byte load inside the image,
+// one load an element mirrored by index (reflect-101) outside it, only at
+// the left and right borders; rows mirrored by index, once a chunk. w is a
+// multiple of a chunk's elements.
+template <int NT, int Q, int N_CHUNKS, int CHUNKS, typename B, typename T>
+__device__ __forceinline__ void fetch16(B (&buf)[CHUNKS], const T* __restrict__ x, int h, int w,
+                                        int iy0, int ix0, int tid) {
+  constexpr int CE = 16 / sizeof(T);
   unrolled<0, CHUNKS>([&](auto u) {
     constexpr int U = decltype(u)::value;
     const int i = U * NT + tid;
     if (U < CHUNKS - 1 || i < N_CHUNKS) {
       const int r = i / Q;
-      const int c = ix0 + 4 * (i - r * Q);
-      const float* row = x + (size_t)reflect101(iy0 + r, h) * w;
+      const int c = ix0 + CE * (i - r * Q);
+      const T* row = x + (size_t)reflect101(iy0 + r, h) * w;
       if (c >= 0 && c < w) {
-        buf[U] = *reinterpret_cast<const float4*>(row + c);
+        buf[U] = *reinterpret_cast<const B*>(row + c);
       } else {
-        buf[U] = make_float4(row[reflect101(c, w)], row[reflect101(c + 1, w)],
-                             row[reflect101(c + 2, w)], row[reflect101(c + 3, w)]);
+        buf[U] = gather16(row, c, w);
       }
     }
   });
@@ -276,10 +319,10 @@ __device__ __forceinline__ void fetch16(float4 (&buf)[CHUNKS], const float* __re
 
 // Stages a tile of N elements, LOAD_W to a row, from rows iy0 and columns
 // ix0 of x one element at a time, each mirrored by index, STAGE_BATCH loads
-// in flight a thread; put(r, c, v) stores one. For rows that are not
-// 16-byte aligned.
-template <int NT, int N, int LOAD_W, typename Put>
-__device__ __forceinline__ void stage_elements(const float* __restrict__ x, int h, int w,
+// in flight a thread; put(r, c, v) stores one (as f32). For rows that are
+// not 16-byte aligned.
+template <int NT, int N, int LOAD_W, typename T, typename Put>
+__device__ __forceinline__ void stage_elements(const T* __restrict__ x, int h, int w,
                                                int iy0, int ix0, int tid, const Put& put) {
   constexpr int ITERS = (N + NT - 1) / NT;
 #pragma unroll 1
@@ -290,7 +333,7 @@ __device__ __forceinline__ void stage_elements(const float* __restrict__ x, int 
       if (i < N) {
         const int r = i / LOAD_W;
         e[decltype(u)::value] =
-            x[(size_t)reflect101(iy0 + r, h) * w + reflect101(ix0 + i - r * LOAD_W, w)];
+            load(x, (size_t)reflect101(iy0 + r, h) * w + reflect101(ix0 + i - r * LOAD_W, w));
       }
     });
     unrolled<0, STAGE_BATCH>([&](auto u) {
@@ -432,48 +475,195 @@ stencil9_kernel(const float* __restrict__ x, TOut* __restrict__ out, int h, int 
   }
 }
 
-// Riesz band pair on the high-pass band: r along W, i along H, both from one
-// tile with a 2-px halo. tr are r's taps (bf16-rounded under ROUND), ti i's.
-template <int RY, typename TIn, typename TOut, bool ROUND>
-__global__ void __launch_bounds__(BX * BY)
-band5_kernel(const TIn* __restrict__ hp, TOut* __restrict__ r_out,
-             TOut* __restrict__ i_out, int h, int w, Taps5 tr, Taps5 ti) {
-  constexpr int TX = BX;
-  constexpr int TY = BY * RY;
-  constexpr int IN_H = TY + 4;
-  constexpr int IN_W = TX + 4;
-  __shared__ float tile[IN_H][IN_W];
-
-  const int ox0 = blockIdx.x * TX;
-  const int oy0 = blockIdx.y * TY;
-  for (int idx = threadIdx.y * BX + threadIdx.x; idx < IN_H * IN_W; idx += BX * BY) {
-    const int r = idx / IN_W;
-    const int c = idx - r * IN_W;
-    tile[r][c] = load(hp, (size_t)reflect101(oy0 - 2 + r, h) * w + reflect101(ox0 - 2 + c, w));
+// Four outputs of row oy from column ox: one 16- or 8-byte store where the
+// row allows (vec), else those inside the image one by one.
+template <typename TOut>
+__device__ __forceinline__ void store_row(TOut* out, int oy, int ox, int h, int w, bool vec,
+                                          const float (&v)[4]) {
+  if (oy >= h) return;
+  const size_t o = (size_t)oy * w + ox;
+  if (vec) {
+    store4(out + o, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (ox + i < w) store(out, o + i, v[i]);
+    }
   }
-  __syncthreads();
+}
 
-  const int tx = threadIdx.x;
-  const int ox = ox0 + tx;
+// Which taps of a 5-tap band bank are used: the main path's
+// (RIESZ_BAND_KERNEL, all but the zero centre) at compile time; any other
+// bank's (TAPS_ANY) tested at run time.
+constexpr int TAPS_ZERO_CENTRE = 3;
+
+// Adds tap B of a band bank to a sum: the first used tap (B = 0 of the zero
+// centre) starts it, the centre is skipped at compile time; any other bank
+// tests the tap as it runs (its sums start from -0, which adds nothing, or
+// +0 for a bank with no used tap). FMA: the product is exact (bf16 factors,
+// host-checked taps), so the fused multiply-add gives the bits of the
+// product rounded and then added.
+template <int PAT, bool FMA, int B>
+__device__ __forceinline__ void band_tap(float& acc, float v, const Taps5& t) {
+  const float k = t.k[B];
+  if constexpr (PAT == TAPS_ANY) {
+    if (k != 0.f) acc = __fadd_rn(acc, __fmul_rn(v, k));
+  } else if constexpr (B == 0) {
+    acc = __fmul_rn(v, k);
+  } else if constexpr (B != 2) {
+    acc = FMA ? __fmaf_rn(v, k, acc) : __fadd_rn(acc, __fmul_rn(v, k));
+  }
+}
+
+// The start of a sum over bank t with run-time taps: -0, or +0 (what the
+// plain version gives) when no tap is used.
+__device__ __forceinline__ float band_start(const Taps5& t) {
+  bool used = false;
 #pragma unroll
-  for (int j = 0; j < RY; ++j) {
-    const int ty = threadIdx.y * RY + j;
-    float rr = 0.f;
-    float ii = 0.f;
-#pragma unroll
-    for (int b = 0; b < 5; ++b) {
-      if (tr.k[b] != 0.f) {
-        const float v = tile[ty + 2][tx + b];
-        rr = madd(rr, ROUND ? round_bf16(v) : v, tr.k[b]);
+  for (int b = 0; b < 5; ++b) used = used || t.k[b] != 0.f;
+  return used ? -0.f : 0.f;
+}
+
+// Blocks of band5_kernel an SM holds at least: 32 warps (64 registers a
+// thread) where a thread has up to 4 output rows, 16 warps (128 registers)
+// where it has more (8 rows a thread stage 10 chunks of the next tile).
+__host__ __device__ constexpr int band5_min_blocks(int tx, int ty, int nt) {
+  return (ty * (tx / 4) / nt > 4 ? 512 : 1024) / nt;
+}
+
+// Riesz band pair on the high-pass band: r along W (taps tr, bf16-rounded
+// under ROUND), i along H (taps ti, as given). A block of NT threads walks
+// output tiles TX x TY as stencil9_kernel does, staging TY+4 rows from oy0-2
+// and TX+2*CE columns from ox0-CE (CE elements to 16 bytes of TIn: 4 f32 or
+// 8 bf16) in 16-byte chunks, reflect-101 by index only for chunks outside
+// the image, bf16 widened to f32 in shared memory, and prefetching the next
+// tile's chunks into registers while it sums this one; other widths or
+// pointers stage one element at a time. A thread computes 4 outputs along W
+// by RY rows: it reads the tile rows of its columns top to bottom, once
+// each (16 bytes), and a row adds its taps to the i sums of every output row
+// that uses it (a window of sums sliding down the column); an output row
+// also reads its neighbours left and right (two more 16-byte reads) for r.
+// Each sum runs over its used taps in order from its first product, as the
+// plain version (ops/conv.py) does, so both outputs equal it bit for bit,
+// the sign of a zero included. ROUND (bf16 operands): r's pixels are
+// rounded to bf16 (already so when TIn is bf16) and its products, exact,
+// fused into the sums (PAT != TAPS_ANY; the host sends other banks to the
+// run-time instantiation); i is the f32 sum rounded to bf16. Outputs go out
+// 16 (f32) or 8 (bf16) bytes at a time where the rows allow.
+template <int TX, int TY, int NT, int PAT, typename TIn, typename TOut, bool ROUND>
+__global__ void __launch_bounds__(NT, band5_min_blocks(TX, TY, NT))
+band5_kernel(const TIn* __restrict__ hp, TOut* __restrict__ r_out, TOut* __restrict__ i_out,
+             int h, int w, int tiles_x, int tiles, int flags,
+             const __grid_constant__ Taps5 tr, const __grid_constant__ Taps5 ti) {
+  constexpr int CE = 16 / sizeof(TIn);  // elements of a 16-byte chunk
+  constexpr int IN_H = TY + 4;          // rows from oy0 - 2
+  constexpr int LOAD_W = TX + 2 * CE;   // columns from ox0 - CE
+  constexpr int Q = LOAD_W / CE;        // chunks of a staged row
+  constexpr int CHUNKS = (IN_H * Q + NT - 1) / NT;
+  constexpr int WX = TX / 4;            // threads along W
+  constexpr int RY = TY * WX / NT;      // output rows of a thread
+  constexpr bool FMA = ROUND && PAT != TAPS_ANY;
+  constexpr bool ROUND_R = ROUND && sizeof(TIn) == 4;  // bf16 pixels are rounded already
+  static_assert(TX % 16 == 0 && RY * NT == TY * WX && NT % WX == 0, "tile shape");
+  __shared__ __align__(16) float tile[IN_H][LOAD_W];
+
+  const int tid = threadIdx.x;
+  const bool vec_in = flags & FLAG_VEC_IN;
+  const bool vec_out_rows = flags & FLAG_VEC_OUT;
+  const int bq = tid % WX;
+  const int y0 = tid / WX * RY;  // tile rows y0 .. y0+RY-1 of the thread's outputs
+  float r_start = 0.f, i_start = 0.f;
+  if constexpr (PAT == TAPS_ANY) {
+    r_start = band_start(tr);
+    i_start = band_start(ti);
+  }
+
+  typename Chunk16<TIn>::type buf[CHUNKS];  // 16-byte rows: the chunks of the next tile
+  auto fetch = [&](int t) {
+    const int ty = t / tiles_x;
+    fetch16<NT, Q, IN_H * Q>(buf, hp, h, w, ty * TY - 2, (t - ty * tiles_x) * TX - CE, tid);
+  };
+  auto put = [&]() {
+    unrolled<0, CHUNKS>([&](auto u) {
+      constexpr int U = decltype(u)::value;
+      const int i = U * NT + tid;
+      if (U < CHUNKS - 1 || i < IN_H * Q) {
+        const int r = i / Q;
+        put16(&tile[r][CE * (i - r * Q)], buf[U]);
       }
-      if (ti.k[b] != 0.f) ii = madd(ii, tile[ty + b][tx + 2], ti.k[b]);
+    });
+  };
+
+  const int first_tile = blockIdx.x;
+  const int stride = gridDim.x;
+  if (vec_in && first_tile < tiles) fetch(first_tile);
+  for (int t = first_tile; t < tiles; t += stride) {
+    const int oy0 = t / tiles_x * TY;
+    const int ox0 = (t - t / tiles_x * tiles_x) * TX;
+    __syncthreads();  // every thread is done reading the previous tile
+    if (vec_in) {
+      put();
+      __syncthreads();
+      if (t + stride < tiles) fetch(t + stride);  // in flight during the sums below
+    } else {
+      // rows or pointer not 16-byte aligned: the columns the outputs read,
+      // one element at a time, mirrored by index
+      stage_elements<NT, IN_H * (TX + 4), TX + 4>(
+          hp, h, w, oy0 - 2, ox0 - 2, tid, [&](int r, int c, float v) { tile[r][c + CE - 2] = v; });
+      __syncthreads();
     }
-    if (ROUND) ii = round_bf16(ii);
-    const int oy = oy0 + ty;
-    if (oy < h && ox < w) {
-      store(r_out, (size_t)oy * w + ox, rr);
-      store(i_out, (size_t)oy * w + ox, ii);
+
+    const int ox = ox0 + 4 * bq;
+    const bool vec_out = vec_out_rows && ox + 4 <= w;
+    const float* col = &tile[y0][CE + 4 * bq];  // the thread's columns in its first row
+    float isum[RY][4];
+#pragma unroll
+    for (int j = 0; j < RY; ++j) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) isum[j][i] = i_start;
     }
+    // tile row y0 + J (image row oy0 + y0 + J - 2) is tap J - T of output
+    // row T's i sum, and the centre of output row J - 2's r sums
+    unrolled<0, RY + 4>([&](auto jj) {
+      constexpr int J = decltype(jj)::value;
+      const float4 m = *reinterpret_cast<const float4*>(col + J * LOAD_W);
+      const float mv[4] = {m.x, m.y, m.z, m.w};
+      unrolled<0, 5>([&](auto bb) {
+        constexpr int B = decltype(bb)::value;
+        if constexpr (J - B >= 0 && J - B < RY) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) band_tap<PAT, false, B>(isum[J - B][i], mv[i], ti);
+        }
+      });
+      if constexpr (J >= 2 && J < RY + 2) {
+        const float4 lo = *reinterpret_cast<const float4*>(col + J * LOAD_W - 4);
+        const float4 hi = *reinterpret_cast<const float4*>(col + J * LOAD_W + 4);
+        float v[8] = {lo.z, lo.w, m.x, m.y, m.z, m.w, hi.x, hi.y};
+        if constexpr (ROUND_R) {
+#pragma unroll
+          for (int q = 0; q < 8; ++q) v[q] = round_bf16(v[q]);
+        }
+        float rv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          rv[i] = r_start;
+          unrolled<0, 5>([&](auto bb) {
+            constexpr int B = decltype(bb)::value;
+            band_tap<PAT, FMA, B>(rv[i], v[i + B], tr);
+          });
+        }
+        store_row(r_out, oy0 + y0 + J - 2, ox, h, w, vec_out, rv);
+      }
+      if constexpr (J >= 4) {  // output row J - 4 has all its i taps
+        float iv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          // a bf16 store rounds the sum itself
+          iv[i] = ROUND && sizeof(TOut) == 4 ? round_bf16(isum[J - 4][i]) : isum[J - 4][i];
+        }
+        store_row(i_out, oy0 + y0 + J - 4, ox, h, w, vec_out, iv);
+      }
+    });
   }
 }
 
@@ -693,8 +883,8 @@ inject9_kernel(const float* __restrict__ small, float* __restrict__ out, int sw,
 // Each sum runs in conv9's, band5's and lp9_decimate's order, every product
 // and sum rounded alone, starting from its first product (the totals of hp
 // and the octave from their first row), as the plain versions do: the
-// outputs equal them bit for bit, the sign of a zero included. (band5_kernel
-// starts its sums from +0, so r and i equal K2's up to the sign of a zero.)
+// outputs equal them, and K1+K2+K3's, bit for bit, the sign of a zero
+// included.
 // The host checks that the three banks have the zero patterns compiled in.
 template <int TX, int TY, int NT, int R, int MIN_BLOCKS, typename TOut>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS)
@@ -893,8 +1083,6 @@ build_level_kernel(const float* __restrict__ x, TOut* __restrict__ hp_out,
   }
 }
 
-constexpr int BAND_RY = 4;
-
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 Taps81 taps81(const void* k) {
@@ -915,7 +1103,7 @@ Taps5 taps5(const void* k) {
 // The fused build and the inject take their small tiles by the same rule.
 constexpr int TALL_GRID_MIN = 2 * 132;
 
-// Output tiles (along W x along H) of the fused build and of the inject.
+// Output tiles (along W x along H) of the fused build, the inject and band5.
 constexpr int BUILD_TALL_TX = 64;
 constexpr int BUILD_TALL_TY = 32;
 constexpr int BUILD_SMALL_TX = 32;
@@ -924,6 +1112,14 @@ constexpr int INJECT_TALL_TX = 128;
 constexpr int INJECT_TALL_TY = 32;
 constexpr int INJECT_SMALL_TX = 64;
 constexpr int INJECT_SMALL_TY = 16;
+constexpr int BAND_TALL_TX = 128;
+constexpr int BAND_TALL_TY = 32;
+constexpr int BAND_SMALL_TX = 64;
+constexpr int BAND_SMALL_TY = 8;
+constexpr int BAND_TALL_F32_TX = 128;  // band5 with f32 in and out (12 bytes a pixel)
+constexpr int BAND_TALL_F32_TY = 64;
+constexpr int BAND_TALL_NT = 256;   // threads of a block: 4 x 4 outputs each (f32: 4 x 8)
+constexpr int BAND_SMALL_NT = 128;  // 4 x 1 outputs each
 
 bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
@@ -976,14 +1172,74 @@ void stencil9_launch(const void* x, void* out, int h, int w, const void* taps, b
   }
 }
 
+template <int TX, int TY, int NT, int PAT, typename TIn, typename TOut, bool ROUND>
+void band5_go(const void* hp, void* r, void* i, int h, int w, int flags, const Taps5& tr,
+              const Taps5& ti, cudaStream_t s) {
+  static const int resident =
+      resident_blocks(band5_kernel<TX, TY, NT, PAT, TIn, TOut, ROUND>, NT);
+  const int tiles_x = ceil_div(w, TX);
+  const int tiles = tiles_x * ceil_div(h, TY);
+  band5_kernel<TX, TY, NT, PAT, TIn, TOut, ROUND><<<tiles < resident ? tiles : resident, NT, 0,
+                                                    s>>>(
+      static_cast<const TIn*>(hp), static_cast<TOut*>(r), static_cast<TOut*>(i), h, w, tiles_x,
+      tiles, flags, tr, ti);
+}
+
+// True when every tap is a bf16 value of magnitude 2^-7 to 1, or zero: then
+// its product with any bf16 value is exact and finite in f32 (the premise of
+// band5's fused bf16 arm; tail.cu's exact_bf16_taps, for 5 taps).
+bool exact_bf16_taps5(const Taps5& t) {
+  for (float k : t.k) {
+    unsigned u;
+    std::memcpy(&u, &k, sizeof u);
+    const float a = k < 0.f ? -k : k;
+    if ((u & 0xffffu) != 0 || (a != 0.f && (a < 0.0078125f || a > 1.f))) return false;
+  }
+  return true;
+}
+
+// The zero pattern band5_kernel compiles in (RIESZ_BAND_KERNEL's: all but
+// the centre) in both banks, and under bf16 operands r's taps exact.
+bool band5_main_taps(const Taps5& tr, const Taps5& ti, bool round) {
+  for (int b = 0; b < 5; ++b) {
+    if ((tr.k[b] == 0.f) != (b == 2) || (ti.k[b] == 0.f) != (b == 2)) return false;
+  }
+  return !round || exact_bf16_taps5(tr);
+}
+
+// The main bank: tall tiles where they give at least TALL_GRID_MIN tiles
+// (with f32 in and out 128x64, where they do, else 128x32), small ones
+// below; any other bank: the small tiles, taps tested at run time, never
+// fused. By graph replay on an H100 (tools/kernel_ab.py against copies
+// with other tiles; PERF.md) the f32 pair, the most bytes a pixel, ran
+// faster on the taller tile and the other arms slower, and on small levels
+// every arm ran faster on 64x8 tiles than on 64x16.
 template <typename TIn, typename TOut, bool ROUND>
 void band5_launch(const void* hp, void* r, void* i, int h, int w, const void* r_taps,
                   const void* i_taps, cudaStream_t s) {
-  const dim3 block(BX, BY);
-  const dim3 grid(ceil_div(w, BX), ceil_div(h, BY * BAND_RY));
-  band5_kernel<BAND_RY, TIn, TOut, ROUND><<<grid, block, 0, s>>>(
-      static_cast<const TIn*>(hp), static_cast<TOut*>(r), static_cast<TOut*>(i), h, w,
-      taps5(r_taps), taps5(i_taps));
+  const Taps5 tr = taps5(r_taps), ti = taps5(i_taps);
+  int flags = 0;
+  if (w % (16 / sizeof(TIn)) == 0 && aligned(hp, 16)) flags |= FLAG_VEC_IN;
+  constexpr size_t OUT4 = 4 * sizeof(TOut);
+  if (w % 4 == 0 && aligned(r, OUT4) && aligned(i, OUT4)) flags |= FLAG_VEC_OUT;
+  constexpr int TT = BAND_TALL_TX, TH = BAND_TALL_TY, TN = BAND_TALL_NT;
+  constexpr int ST = BAND_SMALL_TX, SH = BAND_SMALL_TY, SN = BAND_SMALL_NT;
+  constexpr int FT = BAND_TALL_F32_TX, FH = BAND_TALL_F32_TY;
+  if (!band5_main_taps(tr, ti, ROUND)) {
+    band5_go<ST, SH, SN, TAPS_ANY, TIn, TOut, ROUND>(hp, r, i, h, w, flags, tr, ti, s);
+    return;
+  }
+  if constexpr (sizeof(TIn) == 4 && sizeof(TOut) == 4) {
+    if (ceil_div(w, FT) * ceil_div(h, FH) >= TALL_GRID_MIN) {
+      band5_go<FT, FH, TN, TAPS_ZERO_CENTRE, TIn, TOut, ROUND>(hp, r, i, h, w, flags, tr, ti, s);
+      return;
+    }
+  }
+  if (ceil_div(w, TT) * ceil_div(h, TH) >= TALL_GRID_MIN) {
+    band5_go<TT, TH, TN, TAPS_ZERO_CENTRE, TIn, TOut, ROUND>(hp, r, i, h, w, flags, tr, ti, s);
+  } else {
+    band5_go<ST, SH, SN, TAPS_ZERO_CENTRE, TIn, TOut, ROUND>(hp, r, i, h, w, flags, tr, ti, s);
+  }
 }
 
 template <typename TIn, typename TOut>

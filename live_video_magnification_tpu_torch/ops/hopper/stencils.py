@@ -31,16 +31,17 @@ riesz_build_level is one pass over an octave: hp = octave (*) HP9, its Riesz
 pair, and the decimated 2*LP9 octave. It computes what conv9, band5 and
 lp9_decimate compute, in the same order, so it equals their composition bit
 for bit (hp's apron is taken by mirroring hp's index, as band5 reads it, not
-from the padded octave as the TPU kernel does; band5's kernel starts its sums
-from +0, so its r and i match up to the sign of a zero). Its operands are
-always f32. Every kernel here but band5's matches its plain version's sign of
-a zero too.
+from the padded octave as the TPU kernel does). Its operands are always f32.
+Every kernel here matches its plain version's sign of a zero too.
 
 conv9, lp9_decimate and lp9_inject tell their kernel whether the taps they
 pass have the zero pattern of the bank each runs on the main path
 (``tap_pattern``: conv9's high-pass uses all but the corners, decimate's and
 inject's 2*LP9 all 81), which has an instantiation that skips those zeros at
 compile time; any other bank takes the kernel's run-time test of each tap.
+band5's launcher tells the same itself (the band taps' zero centre; in the
+bf16 arm also taps whose products with bf16 pixels are exact, which its
+kernel fuses into the sums).
 riesz_build_level always passes the same three banks, whose patterns its
 kernel compiles in. The design notes (tiles, reflect-101 by index
 mirroring, the exact tap order) are at the top of the CUDA source. Unlike the
@@ -84,11 +85,14 @@ MIN_FUSED_SIDE = 16  # riesz_build_level, the reference's MIN_FUSED_DIM
 
 DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
-# Output tiles (rows, columns) of the fused build's and the inject's kernels
-# (csrc/stencils.cu BUILD_*_TX/TY, INJECT_*_TX/TY): the tall tiles run where
-# they give at least TALL_GRID_MIN tiles, the small ones below.
+# Output tiles (rows, columns) of the fused build's, the inject's and band5's
+# kernels (csrc/stencils.cu BUILD_*_TX/TY, INJECT_*_TX/TY, BAND_*_TX/TY): the
+# tall tiles run where they give at least TALL_GRID_MIN tiles, the small ones
+# below (band5's for any bank but the main one; band5 with f32 in and out
+# takes "tall_f32" where that gives as many, else "tall").
 BUILD_TILES = {"tall": (32, 64), "small": (16, 32)}
 INJECT_TILES = {"tall": (32, 128), "small": (16, 64)}
+BAND_TILES = {"tall_f32": (64, 128), "tall": (32, 128), "small": (8, 64)}
 TALL_GRID_MIN = 2 * 132
 
 # The zero pattern of each function's main-path bank, for which its kernel
@@ -167,6 +171,27 @@ def inject9_shapes():
     pairs = [(half(o), o) for o in outs] + [((70, 124), (135, 241)), ((9, 33), (sh, sw))]
     levels = [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]
     return pairs + [(levels[i + 1], levels[i]) for i in range(len(levels) - 1)]
+
+
+def band5_shapes():
+    """Shapes that reach every edge of band5's tiles (BAND_TILES): the
+    smallest side (5) at every width residue mod 8 (16-byte rows of f32 or
+    of bf16, or not) and as the width; one small tile, one more row, one
+    more column, two and a ragged third each way; tall tiles (TALL_GRID_MIN
+    or more, of each tall size) aligned, one element more each way and (the
+    32-row ones) with rows of f32 but not bf16 chunks; the odd shapes of the
+    reference's band5 tests; every band level of 2160x3840 and 1080x1920
+    (where blocks walk several tiles); the strips of the sharded step's
+    first two levels (width 960 + 2 x 2)."""
+    sh, sw = BAND_TILES["small"]
+    th, tw = _tall_shape({"tall": BAND_TILES["tall"]})
+    fh, fw = _tall_shape({"tall": BAND_TILES["tall_f32"]})
+    shapes = [(5, 8 + m) for m in range(8)] + [(13, 5)]
+    shapes += [(sh, sw), (sh + 1, sw), (sh, sw + 1), (2 * sh + 1, 2 * sw + 1)]
+    shapes += [(th, tw), (th + 1, tw + 1), (th, tw + 4), (fh, fw), (fh + 1, fw + 1)]
+    shapes += [(128, 128), (130, 250), (96, 200), (33, 257), (97, 201), (135, 241)]
+    shapes += [(2160, 3840), (1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]
+    return shapes + [(2160, 964), (1080, 484)]
 
 
 def round_bf16(x: torch.Tensor) -> torch.Tensor:

@@ -73,7 +73,7 @@ def test_build_stencils_equal_plain_versions(cuda, shape):
     _same(stencils.conv9(x, RIESZ_HIGHPASS_9x9), stencils.conv9_plain(x, RIESZ_HIGHPASS_9x9))
     for got, ref in zip(stencils.band5(x, RIESZ_BAND_KERNEL),
                         stencils.band5_plain(x, RIESZ_BAND_KERNEL)):
-        _same(got, ref)
+        _bits(got, ref)
     _same(stencils.lp9_decimate(x, LP2), stencils.lp9_decimate_plain(x, LP2))
     torch.cuda.synchronize()
     for k in ("conv9", "band5", "lp9_decimate"):
@@ -328,7 +328,7 @@ def test_build_level_equals_plain_version_and_the_three_stencils(cuda, shape, ou
     r, i = stencils.band5(hp, RIESZ_BAND_KERNEL)
     od = stencils.DTYPES[out_dtype]
     for g, k in zip(got, (hp.to(od), r.to(od), i.to(od), stencils.lp9_decimate(x, LP2))):
-        _same(g, k)
+        _bits(g, k)
 
 
 def _zeros_and_tiny(x):
@@ -351,8 +351,7 @@ def test_build_level_tiles_equal_plain_version_bit_for_bit(cuda, shape, offset):
     """K5 at every edge of its tiles (both instantiations, 16-byte staging
     and stores or not, blocks that walk several tiles), the octave aligned
     and one element off, both output dtypes: bit for bit with the plain
-    version, the sign of a zero included, and equal to K1+K2+K3 (band5's
-    kernel starts from +0, so up to the sign of a zero)."""
+    version and with K1+K2+K3, the sign of a zero included."""
     x = _zeros_and_tiny(_plane(shape, cuda))
     if offset:
         x = _misaligned(x)
@@ -364,9 +363,43 @@ def test_build_level_tiles_equal_plain_version_bit_for_bit(cuda, shape, offset):
         ref = stencils.riesz_build_level_plain(x, od)
         for g, r, k in zip(got, ref, three):
             _bits(g, r)
-            _same(g, k.to(g.dtype))
+            _bits(g, k.to(g.dtype))
     torch.cuda.synchronize()
     assert stencils.LAUNCHES["riesz_build_level"] == before + 2
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", stencils.band5_shapes())
+def test_band5_tiles_equal_plain_version_bit_for_bit(cuda, shape, offset):
+    """All eight band5 instantiations (f32 or bf16 input, f32 or bf16
+    outputs, f32 or bf16 operands) at every edge of their tiles (tall and
+    small, 16-byte staging and stores or not, blocks that walk several
+    tiles), the plane aligned and one element off, with zeros, -0 and tiny
+    and subnormal pixels: bit for bit with the plain version, the sign of a
+    zero included, under the main bank (compile-time taps, the bf16 arm's r
+    fused), a random bank with a zero and a bank of the main pattern with
+    taps below 2^-7, whose bf16 products may round (both the run-time
+    taps, never fused)."""
+    rng = np.random.default_rng(shape[0] * 1000 + shape[1] + 1)
+    kr = rng.standard_normal(5).astype(np.float32)
+    kr[rng.integers(5)] = 0.0
+    small = np.array([-0.2, -1e-3, 0.0, 1e-3, 0.2], np.float32)
+    x = _zeros_and_tiny(_plane(shape, cuda))
+    before = (stencils.LAUNCHES["band5"], stencils.LAUNCHES_BF16["band5"])
+    for dtype in (torch.float32, torch.bfloat16):
+        hp = x.to(dtype)
+        if offset:
+            hp = _misaligned(hp)
+        for taps in (RIESZ_BAND_KERNEL, kr, small):
+            for bf16 in (False, True):
+                for od in ("f32", "bf16"):
+                    got = stencils.band5(hp, taps, bf16=bf16, out_dtype=od)
+                    ref = stencils.band5_plain(hp, taps, bf16, od)
+                    for g, r in zip(got, ref):
+                        _bits(g, r)
+    torch.cuda.synchronize()
+    assert (stencils.LAUNCHES["band5"], stencils.LAUNCHES_BF16["band5"]) == (
+        before[0] + 12, before[1] + 12)
 
 
 @pytest.mark.parametrize("offset", [0, 1])

@@ -7,6 +7,8 @@ commit's on one CUDA card, and count the SASS of their CUDA kernels.
         [--sass stencils:stencil9_kernel]
     python3 tools/kernel_ab.py build/parent --sass "stencils:build_level_kernel|inject9_kernel" \
         --kernels riesz_build_level,riesz_build_level[bf16 out],lp9_inject,lp9_inject[bf16],conv9,band5,lp9_decimate
+    python3 tools/kernel_ab.py build/parent --sass stencils:band5_kernel \
+        --kernels band5,band5[bf16],conv9,conv9[bf16],lp9_decimate,riesz_build_level
     python3 tools/kernel_ab.py build/parent --sass tail:amplify13_kernel \
         --kernels riesz_amplify_mxu,riesz_amplify_fused[preweighted],riesz_amplify_mxu[fast],riesz_level_mxu
 
@@ -54,7 +56,10 @@ def _cases(st, tl, x, small, tail_planes, h, w):
     more entry. The tail kernels run on standard-normal planes (the amplitude
     a magnitude): K6 with f32 planes, K7 preweighted (the phase_fused+pallas
     call), K6's fast arm (bf16 planes and operands) and K9, the whole level
-    tail, as a control."""
+    tail, as a control. band5 takes all eight instantiations: ``band5`` (f32
+    in and out, the defaults and the sharded step), ``band5[bf16]`` (bf16
+    in and out, bf16 operands: --fast) and ``band5[<in>><out>]`` with
+    `` bf16 ops`` for the bf16 operand arm."""
     import torch
     from live_video_magnification_tpu_torch.ops.kernels import (
         LOWPASS_2X,
@@ -69,11 +74,19 @@ def _cases(st, tl, x, small, tail_planes, h, w):
     fast = [p.to(torch.bfloat16) for p in six]
     coeffs = [c for band in (1.0, 5.0) for c in butterworth_bandpass_coeffs(band, 30.0)]
     q = tail_planes  # K9's 16 planes
-    return {
+    planes = {"f32": x, "bf16": x.to(torch.bfloat16)}
+    band = {
+        f"band5[{ti}>{to}{' bf16 ops' if ops else ''}]":
+            (lambda hp=planes[ti], to=to, ops=ops:
+             st.band5(hp, RIESZ_BAND_KERNEL, bf16=ops, out_dtype=to))
+        for ti in ("f32", "bf16") for to in ("f32", "bf16") for ops in (False, True)
+    }
+    band["band5"] = band.pop("band5[f32>f32]")
+    band["band5[bf16]"] = band.pop("band5[bf16>bf16 bf16 ops]")
+    return {**band,
         "conv9": lambda: st.conv9(x, hp9),
         "conv9[bf16]": lambda: st.conv9(x, hp9, bf16=True, out_dtype="bf16"),
         "conv9[bf16 to f32]": lambda: st.conv9(x, hp9, bf16=True),
-        "band5": lambda: st.band5(x, RIESZ_BAND_KERNEL),
         "lp9_decimate": lambda: st.lp9_decimate(x, lp2),
         "lp9_decimate[bf16]": lambda: st.lp9_decimate(x, lp2, bf16=True),
         "lp9_inject": lambda: st.lp9_inject(small, lp2, (h, w)),
@@ -90,7 +103,10 @@ def _cases(st, tl, x, small, tail_planes, h, w):
     }
 
 
-KERNELS = ("conv9", "conv9[bf16]", "conv9[bf16 to f32]", "band5", "lp9_decimate",
+BAND5 = ("band5", "band5[bf16]", "band5[f32>f32 bf16 ops]", "band5[f32>bf16]",
+         "band5[f32>bf16 bf16 ops]", "band5[bf16>f32]", "band5[bf16>f32 bf16 ops]",
+         "band5[bf16>bf16]")
+KERNELS = ("conv9", "conv9[bf16]", "conv9[bf16 to f32]", *BAND5, "lp9_decimate",
            "lp9_decimate[bf16]", "lp9_inject", "lp9_inject[bf16]", "riesz_build_level",
            "riesz_build_level[bf16 out]", "riesz_amplify_mxu",
            "riesz_amplify_fused[preweighted]", "riesz_amplify_mxu[fast]", "riesz_level_mxu")
