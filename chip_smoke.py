@@ -66,7 +66,20 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      default plan and forced sharded; frames against the unsharded step's
      (1 LSB; mesh of 1 bit-equal), K10 launches a frame as derived from the
      plan; then the same on real cards when there are two or more, with its
-     ms/frame beside the mesh of 1's.
+     ms/frame beside the mesh of 1's;
+  9. motion and colour (no kernel of K1-K10 on their paths, asserted) at
+     2160x3840 at each mode's defaults (motion levels 4; colour levels 3,
+     30 fps) through the per-chunk calls of ``cli.py magnify``
+     (``ClipProcessor.process_chunk`` of one host frame, then ``compose``
+     left-right), in two passes, the second in reverse order: steady
+     ms/frame, peak memory, device kernels a frame, frames equal to
+     ``MagnificationChain.process``'s (its steady ms/frame beside, output
+     left on the card, and a profile of two of its frames in the first
+     pass), and the colour window's shift by events; then at 1080x1920 on the card against the port's CPU path
+     (motion 4 frames within 1 LSB; colour 20 frames at 8 fps, >= 45 dB),
+     and one steady step of each under
+     ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises).
+     cuBLAS and cuDNN are asserted IEEE f32 first.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -976,6 +989,172 @@ def slice_card_vs_cpu(torch, dev, st, tl, name="jnp", h=1080, w=1920, t=4):
     return launches
 
 
+MODES_4K = ("laplace", "color")  # the phases' order in the first pass; reversed in the second
+
+
+def mode_cfg(mode, levels=None, fps=None):
+    """The chain configuration of ``defaults_for(mode)`` (the CLI's defaults),
+    with its depth or capture rate replaced where given."""
+    from live_video_magnification_tpu_torch.models.params import (
+        MagnificationMode,
+        ProcessorConfig,
+        defaults_for,
+        to_params,
+    )
+
+    ui = defaults_for(MagnificationMode(mode))
+    if levels is not None:
+        ui.levels = levels
+    if fps is not None:
+        ui.capture_fps = fps
+    return ProcessorConfig(magnification=to_params(ui))
+
+
+def assert_ieee_f32(torch):
+    """cuBLAS and cuDNN in IEEE f32 (device.pin_ieee_f32): the colour
+    bandpass and the resizes are matmuls."""
+    flags = {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
+             "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    precision = getattr(torch.backends.cuda.matmul, "fp32_precision", "ieee")
+    if any(flags.values()) or precision != "ieee":
+        raise AssertionError(f"f32 is not IEEE: {flags}, matmul.fp32_precision={precision}")
+    return {**flags, "cuda.matmul.fp32_precision": precision}
+
+
+def window_shift_ms(torch, dev, cfg, h, w):
+    """Device time of colour mode's window shift (models/color.py: one copy
+    of the [W, C, hs, ws] window a frame once it is full), by CUDA events."""
+    from live_video_magnification_tpu_torch.models import color as color_mode
+
+    p = cfg.magnification
+    state = color_mode.init_state(h, w, 3, p.levels, p.framerate, device=dev)
+    small = state.window[0].clone()
+    ms = cuda_ms(lambda: torch.cat([state.window[1:], small[None]]), iters=20)
+    return ms, list(state.window.shape), state.window.numel() * 4
+
+
+def slice_4k_modes(torch, dev, st, tl, hl, frames):
+    """Motion and colour at 2160x3840 through the per-chunk calls of
+    ``cli.py magnify``: ``ClipProcessor.process_chunk`` of host frames one at a
+    time, then ``compose(..., LEFT_RIGHT, overlay=False)``; each mode at its
+    defaults (motion: levels 4; colour: levels 3, 30 fps). Two passes, the
+    second in reverse order. Asserts the frames equal
+    ``MagnificationChain.process``'s and that none of K1-K10 is launched."""
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.export.exporter import compose
+    from live_video_magnification_tpu_torch.export.types import SplitMode
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+
+    t, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    tchw = np.ascontiguousarray(frames.transpose(0, 3, 1, 2))
+    for n_pass, order in enumerate((MODES_4K, MODES_4K[::-1]), start=1):
+        for mode in order:
+            cfg = mode_cfg(mode)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            reset_counts(st, tl, hl)
+            proc = ClipProcessor(cfg, h, w, 3, device=dev)
+            outs, step_s = [], []
+            for i in range(t):
+                t0 = time.perf_counter()
+                processed, original = proc.process_chunk(tchw[i:i + 1])
+                pane = compose(original[0].transpose(1, 2, 0), processed[0].transpose(1, 2, 0),
+                               SplitMode.LEFT_RIGHT, False)
+                step_s.append(time.perf_counter() - t0)
+                outs.append(processed[0])
+            peak = torch.cuda.max_memory_allocated(dev)
+            launched = {k: v for k, v in launch_counts(st, tl, hl).items() if v}
+            if launched:
+                raise AssertionError(f"4K {mode} launched kernels of the phase path: {launched}")
+            if pane.shape != (h, 2 * w, 3) or not np.array_equal(pane[:, w:], outs[-1].transpose(1, 2, 0)):
+                raise AssertionError(f"4K {mode}: the composed frame is not the processed pane")
+            moved = [int(np.count_nonzero(outs[i] != tchw[i])) for i in range(t)]
+            if min(moved[2:]) == 0:
+                raise AssertionError(f"4K {mode}: frames left unchanged: {moved}")
+            chain = MagnificationChain(device=dev)
+            chain_s = []
+            for i in range(t):  # the step alone: host frame in, output on the card
+                t0 = time.perf_counter()
+                got = chain.process(frames[i], cfg)[0]
+                torch.cuda.synchronize()
+                chain_s.append(time.perf_counter() - t0)
+                if not np.array_equal(got.cpu().numpy().transpose(2, 0, 1), outs[i]):
+                    raise AssertionError(f"4K {mode} frame {i}: ClipProcessor differs from the chain")
+            kernels = device_kernels_per_frame(torch, chain, frames[2], cfg)
+            name = f"4k_{'motion' if mode == 'laplace' else 'color'}"
+            if n_pass == 1:
+                log(phase=f"profile_{name}", card=torch.cuda.get_device_name(dev),
+                    **profile_chain(torch, chain, frames[3:5], cfg))
+            steady_ms = 1e3 * sum(step_s[2:]) / len(step_s[2:])
+            chain_ms = 1e3 * sum(chain_s[2:]) / len(chain_s[2:])
+            extra = {}
+            if mode == "color":
+                shift_ms, shape, nbytes = window_shift_ms(torch, dev, cfg, h, w)
+                extra = dict(window_shape=shape, window_bytes=nbytes, window_shift_ms=shift_ms)
+            p = cfg.magnification
+            log(phase=f"slice_{name}", run=n_pass,
+                card=torch.cuda.get_device_name(dev), shape=[h, w], levels=proc.key.levels,
+                framerate=p.framerate, frames=t,
+                per_frame="process_chunk of one host frame + compose(LEFT_RIGHT)",
+                step_ms=[1e3 * s for s in step_s], steady_ms_per_frame=steady_ms,
+                steady_fps=1e3 / steady_ms, chain_step_ms=[1e3 * s for s in chain_s],
+                chain_steady_ms_per_frame=chain_ms, peak_memory_bytes=peak,
+                device_kernels_per_frame=kernels, phase_kernel_launches=0,
+                changed_pixels=moved, clip_equals_chain=True, **extra)
+            del proc, chain, outs
+
+
+def slice_card_vs_cpu_modes(torch, dev, st, tl, hl, h=1080, w=1920):
+    """Motion (4 frames, levels 4) and colour (20 frames at capture_fps 8, so
+    its 16-frame window fills and rolls; levels 3) at 1080x1920 on the card
+    against the port's CPU path: motion within 1 LSB, colour >= 45 dB with
+    the warm-up frame passed through. Then one steady step of each on the
+    card under torch.cuda.set_sync_debug_mode("error"), frame and state
+    already there: a host sync in the step raises."""
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    clip = moving_clip(21, h, w, seed=SEED + 4)
+    for mode, t, fps in (("laplace", 4, None), ("color", 20, 8.0)):
+        cfg = mode_cfg(mode, fps=fps)
+        t0 = time.perf_counter()
+        gpu, cpu = MagnificationChain(device=dev), MagnificationChain(device="cpu")
+        reset_counts(st, tl, hl)
+        a_frames = [gpu.process(f, cfg)[0].cpu().numpy() for f in clip[:t]]
+        launched = {k: v for k, v in launch_counts(st, tl, hl).items() if v}
+        b_frames = [cpu.process(f, cfg)[0].numpy() for f in clip[:t]]
+        dbs, lsbs = frame_stats(a_frames, b_frames)
+        name = "motion" if mode == "laplace" else "color"
+        if launched:
+            raise AssertionError(f"1080p {name} launched kernels of the phase path: {launched}")
+        if mode == "laplace" and max(lsbs) > 1:
+            raise AssertionError(f"1080p motion: card vs CPU {lsbs} LSB, over 1")
+        if mode == "color" and (min(dbs) < 45.0 or not np.array_equal(a_frames[0], clip[0])):
+            raise AssertionError(f"1080p color: card vs CPU {dbs} dB (bar 45), or the "
+                                 "warm-up frame is not the input")
+        log(phase="slice_1080p_card_vs_cpu", config=name, card=torch.cuda.get_device_name(dev),
+            shape=[h, w], levels=gpu._key.levels, framerate=cfg.magnification.framerate,
+            window=gpu._state.window.shape[0] if mode == "color" else None, frames=t,
+            psnr_db=dbs, min_psnr_db=min(dbs), max_lsb=lsbs, max_lsb_all=max(lsbs),
+            phase_kernel_launches=0, seconds=time.perf_counter() - t0)
+
+        # the sync check: a steady step (colour: the window full and rolling)
+        frame = torch.from_numpy(clip[t]).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = gpu.process(frame, cfg)[0]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ref = cpu.process(clip[t], cfg)[0].numpy()
+        db, lsb = frame_stats([out.cpu().numpy()], [ref])
+        log(phase="sync_check", config=name, card=torch.cuda.get_device_name(dev),
+            shape=[h, w], count_before=t, sync_debug_mode="error", raised=False,
+            psnr_db=db[0], max_lsb=lsb[0])
+        del gpu, cpu
+
+
 def bound(nbytes: float, ops: float, bf16_ops: float = 0.0):
     """(bound ms, what bounds it) on the published H100 SXM peaks: ``ops`` on
     f32 operands at the f32 rate, ``bf16_ops`` on bf16 operands at the bf16
@@ -1524,10 +1703,13 @@ def main() -> int:
     halo_times, halo_frame = halo_kernel_time(dev, hl, plan4k)
     launches, frames, jnp_out = slice_4k(torch, dev, st, tl, frames)
     runs = slice_4k_tails(torch, dev, st, tl, frames, jnp_out)
+    log(phase="ieee_f32", **assert_ieee_f32(torch))
+    slice_4k_modes(torch, dev, st, tl, hl, frames)
     del frames, jnp_out
     flagship = slice_card_vs_cpu(torch, dev, st, tl, "jnp")
     slice_card_vs_cpu(torch, dev, st, tl, "level")
     slice_card_vs_cpu(torch, dev, st, tl, "fast")
+    slice_card_vs_cpu_modes(torch, dev, st, tl, hl)
     sharded = slice_4k_sharded(torch, dev, st, tl, hl)
 
     path = lambda name: " ".join(f"{k}={v}" for k, v in CONFIGS[name][0].items()) or "defaults"

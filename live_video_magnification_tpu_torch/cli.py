@@ -1,0 +1,343 @@
+"""Command-line front end of the PyTorch port.
+
+    python -m live_video_magnification_tpu_torch.cli info <video>
+    python -m live_video_magnification_tpu_torch.cli magnify <in> <out> [params]
+
+The counterpart of the reference package's ``cli.py`` for its offline
+commands: ``info`` prints the container's frame count, size, rate and the
+largest pyramid depth; ``magnify`` decodes a file, runs the frames through
+the sequential ``ClipProcessor`` in chunks (motion, colour or phase) and
+encodes the result at constant host memory, with checkpoints and resume.
+
+Parameters are taken in UI units (Hz bands, percent sliders) and mapped
+through the single UI <-> algorithm mapping (``models/params.py``), as the
+reference's panels do. ``--device`` (``cuda`` by default, or ``cpu``) picks
+where the frames are processed: without a card, ``cuda`` fails rather than
+falling back to the CPU. Decoding and encoding need OpenCV (cv2).
+
+Not ported yet (ROADMAP.md): ``--time-parallel`` and ``--distributed``
+(they fail with a message), and the ``live``, ``record``, ``cameras`` and
+``bench`` commands.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import glob
+import json
+import os
+import re
+import shutil
+import sys
+import time
+
+FAST_FLAGS = {"LVMT_MXU_DTYPE": "bf16", "LVMT_TAIL": "mxu", "LVMT_TAIL_IO": "bf16",
+              "LVMT_PYR_IO": "bf16"}
+
+
+def _add_mag_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--mode", default="laplace", choices=["laplace", "phase", "color", "none"])
+    p.add_argument("--amplification", type=float, default=None, help="alpha (UI units)")
+    p.add_argument("--wavelength", type=float, default=None, help="UI percent slider")
+    p.add_argument("--low", type=float, default=None, help="band low (Hz)")
+    p.add_argument("--high", type=float, default=None, help="band high (Hz)")
+    p.add_argument("--chroma", type=int, default=None, help="chroma attenuation percent")
+    p.add_argument("--levels", type=int, default=None)
+    p.add_argument("--fps", type=float, default=None, help="capture/algorithm framerate")
+    p.add_argument("--grayscale", action="store_true")
+    p.add_argument("--downscale", type=int, default=1, choices=[1, 2, 4, 8])
+    p.add_argument("--roi", type=float, nargs=4, metavar=("X", "Y", "W", "H"),
+                   default=None, help="normalized ROI")
+    p.add_argument("--fast", action="store_true",
+                   help="phase mode's bf16 pairing: bf16 stencil operands, the mxu "
+                        "tail, bf16 transient and pyramid planes (" +
+                        " ".join(f"{k}={v}" for k, v in FAST_FLAGS.items()) + ")")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where frames are processed (default cuda; no fallback)")
+
+
+def _apply_fast_mode(args) -> None:
+    """--fast sets the four phase-mode flags before any chain is built (the
+    chain reads them into its static key). An explicit environment setting
+    of any of them wins."""
+    if getattr(args, "fast", False):
+        for var, value in FAST_FLAGS.items():
+            os.environ.setdefault(var, value)
+
+
+def _config_from_args(args, source_fps: float):
+    from live_video_magnification_tpu_torch.models.params import (
+        MagnificationMode,
+        PreprocessParams,
+        ProcessorConfig,
+        clamp_band_to_nyquist,
+        defaults_for,
+        to_params,
+    )
+
+    ui = defaults_for(MagnificationMode(args.mode))
+    ui.capture_fps = args.fps or source_fps
+    if args.amplification is not None:
+        ui.amplification = int(args.amplification)
+    if args.wavelength is not None:
+        ui.wavelength = args.wavelength
+    if args.low is not None:
+        ui.low = args.low
+    if args.high is not None:
+        ui.high = args.high
+    if args.chroma is not None:
+        ui.chroma = args.chroma
+    if args.levels is not None:
+        ui.levels = args.levels
+    clamp_band_to_nyquist(ui)
+    pre = PreprocessParams(downscale=args.downscale)
+    if args.roi is not None:
+        x, y, w, h = args.roi
+        pre = dataclasses.replace(pre, roi_enabled=True, roi_x=x, roi_y=y, roi_w=w, roi_h=h)
+    return ProcessorConfig(grayscale=args.grayscale, preprocess=pre, magnification=to_params(ui))
+
+
+def cmd_info(args) -> int:
+    from live_video_magnification_tpu_torch.io.video import video_info
+    from live_video_magnification_tpu_torch.ops.pyramid import calculate_max_levels
+
+    n, h, w, fps = video_info(args.video)
+    print(f"frames={n} size={w}x{h} fps={fps:.3f} max_levels={calculate_max_levels((h, w))}")
+    return 0
+
+
+def cmd_magnify(args) -> int:
+    """Streaming offline export: decode -> device chunk -> encode at constant
+    host memory (a long 4K clip never materializes in RAM)."""
+    for flag, what in (("time_parallel", "--time-parallel"), ("distributed", "--distributed")):
+        if getattr(args, flag, False):
+            print(f"error: {what} is not ported yet, see ROADMAP.md (queue 1)", file=sys.stderr)
+            return 2
+    _apply_fast_mode(args)
+
+    import numpy as np
+
+    from live_video_magnification_tpu_torch.device import resolve_device
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.export.exporter import compose
+    from live_video_magnification_tpu_torch.export.types import SplitMode
+    from live_video_magnification_tpu_torch.io.video import (
+        VideoWriterStream,
+        iter_video,
+        video_info,
+    )
+
+    try:
+        device = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"error: {e} (here: --device cpu)", file=sys.stderr)
+        return 1
+    split = SplitMode(args.split)
+
+    total, h, w, fps = video_info(args.input)
+    probe = next(iter_video(args.input, args.start, args.start + 1), None)
+    if probe is None:
+        print("no frames decoded", file=sys.stderr)
+        return 1
+    channels = 1 if probe.ndim == 2 else probe.shape[2]
+    h, w = probe.shape[0], probe.shape[1]
+    cfg = _config_from_args(args, fps)
+
+    proc = ClipProcessor(cfg, h, w, channels, device=device)
+    start = args.start
+    if args.checkpoint and os.path.exists(args.checkpoint + ".npz"):
+        try:
+            start = args.start + proc.load_checkpoint(args.checkpoint)
+            print(f"resuming at frame {start}", file=sys.stderr)
+        except ValueError as e:
+            print(f"error: {e}\n(delete {args.checkpoint}.npz or pass a "
+                  "different --checkpoint path to start fresh)", file=sys.stderr)
+            return 1
+
+    out_path = args.output
+    if start > args.start and os.path.exists(args.output):
+        # cv2.VideoWriter would truncate the partial file of the interrupted
+        # run; a resumed run writes its continuation to a part file instead,
+        # merged after the run
+        base, ext = os.path.splitext(args.output)
+        out_path = f"{base}.from{start}{ext}"
+        print(f"{args.output} exists — writing resumed frames to {out_path}",
+              file=sys.stderr)
+
+    end = args.end if args.end is not None else (total or None)
+    goal = (end - args.start) if end is not None else None
+    writer = VideoWriterStream(out_path, args.file_fps or fps)
+    t0 = time.monotonic()
+
+    def flush(buf):
+        processed, original = proc.process_chunk(
+            np.ascontiguousarray(np.moveaxis(np.stack(buf), -1, 1)))
+        out_hwc = np.moveaxis(processed, 1, -1)
+        if split is not SplitMode.NONE:
+            orig_hwc = np.moveaxis(original, 1, -1)
+            out_hwc = np.stack([compose(orig_hwc[i], out_hwc[i], split, args.labels)
+                                for i in range(out_hwc.shape[0])])
+        writer.write_chunk(out_hwc)
+        done = proc.cursor
+        print(f"\r{done}/{goal if goal is not None else '?'} frames",
+              end="", file=sys.stderr)
+        if args.checkpoint and args.checkpoint_every and (
+                done % args.checkpoint_every) < args.chunk:
+            proc.save_checkpoint(args.checkpoint)
+
+    buf = []
+    for frame in iter_video(args.input, start, end):
+        buf.append(frame if frame.ndim == 3 else frame[..., None])
+        if len(buf) == args.chunk:
+            flush(buf)
+            buf = []
+    if buf:
+        flush(buf)
+    dt = time.monotonic() - t0
+    path = writer.close()
+    if writer.frames_written == 0:
+        if start > args.start:
+            print("\nnothing to do: checkpoint cursor is at/past the end "
+                  "(export already complete)", file=sys.stderr)
+            return 0
+        print("\nnothing exported (empty range)", file=sys.stderr)
+        return 1
+    print(f"\nwrote {writer.frames_written} frames to {path} "
+          f"({writer.frames_written / dt:.1f} fps processing, {device})", file=sys.stderr)
+    if out_path != args.output:
+        # record this run's part before merging: the merge only takes parts
+        # the manifest lists, never a stale .fromN file of an older export
+        _record_part(args.output, path, start)
+        _concat_resumed_parts(args.output, fps=args.file_fps or fps)
+    return 0
+
+
+def _parts_manifest_path(output: str) -> str:
+    base, _ext = os.path.splitext(output)
+    return f"{base}.parts.json"
+
+
+def _read_manifest(mpath: str) -> list:
+    with open(mpath) as f:
+        return json.load(f)["parts"]
+
+
+def _record_part(output: str, part_path: str, start: int) -> None:
+    """Append a resumed run's continuation file to the output's part manifest
+    (ordered by resume frame). The manifest is the source of truth for the
+    merge; unknown .fromN files on disk are warned about, never merged."""
+    mpath = _parts_manifest_path(output)
+    entries = []
+    if os.path.exists(mpath):
+        try:
+            entries = _read_manifest(mpath)
+        except (OSError, ValueError, KeyError):
+            entries = []
+    name = os.path.basename(part_path)
+    if not any(e["path"] == name for e in entries):
+        entries.append({"start": int(start), "path": name})
+    entries.sort(key=lambda e: e["start"])
+    with open(mpath, "w") as f:
+        json.dump({"output": os.path.basename(output), "parts": entries}, f)
+
+
+def _concat_resumed_parts(output: str, fps: float | None = None) -> None:
+    """Merge ``output`` and its manifest-listed ``.fromN`` continuation files
+    into one file (``io/video.py::concat_videos``: ffmpeg stream copy when
+    ffmpeg is on PATH, else a cv2 re-encode). Part files on disk that the
+    manifest does not list are warned about and left alone."""
+    from live_video_magnification_tpu_torch.io.video import concat_videos, video_info
+
+    base, _ext = os.path.splitext(output)
+    out_dir = os.path.dirname(output) or "."
+    mpath = _parts_manifest_path(output)
+
+    part_re = re.compile(re.escape(os.path.basename(base)) + r"\.from(\d+)\.\w+$")
+    on_disk = {os.path.basename(p) for p in glob.glob(f"{glob.escape(base)}.from*")
+               if part_re.match(os.path.basename(p))}
+
+    manifest = []
+    if os.path.exists(mpath):
+        try:
+            manifest = _read_manifest(mpath)
+        except (OSError, ValueError, KeyError) as e:
+            print(f"unreadable part manifest {mpath} ({e}) — not merging", file=sys.stderr)
+            return
+    if not manifest:
+        if on_disk:
+            print(f"found {len(on_disk)} .from* part file(s) with no manifest "
+                  f"({mpath}) — possibly from an older export; not merging",
+                  file=sys.stderr)
+        return
+
+    listed = [e["path"] for e in manifest]
+    stray = sorted(on_disk - set(listed))
+    if stray:
+        print(f"ignoring {len(stray)} unlisted part file(s): " + ", ".join(stray),
+              file=sys.stderr)
+    missing = [n for n in listed if not os.path.exists(os.path.join(out_dir, n))]
+    if missing:
+        print(f"manifest lists missing part(s) {missing} — keeping everything unmerged",
+              file=sys.stderr)
+        return
+    parts = [os.path.join(out_dir, n) for n in listed]
+    ordered = [output] + parts
+
+    had_ffmpeg = shutil.which("ffmpeg") is not None
+    if fps is None:
+        try:  # only the cv2 re-encode uses fps
+            fps = video_info(output)[3] or 30.0
+        except (OSError, ImportError):
+            fps = 30.0
+    try:
+        final = concat_videos(ordered, output, fps)
+    except (OSError, ImportError) as e:
+        print(f"concat failed ({e}) — kept {len(ordered)} part files; "
+              "concatenate them with ffmpeg's concat demuxer", file=sys.stderr)
+        return
+    for p in parts:
+        os.unlink(p)
+    if final != output and os.path.exists(output):
+        os.unlink(output)  # the re-encode switched containers: drop the old first segment
+    os.unlink(mpath)
+    if not had_ffmpeg:
+        print("ffmpeg not found — re-encoded the parts with cv2 instead", file=sys.stderr)
+    print(f"auto-concatenated {len(ordered)} parts into {final}", file=sys.stderr)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m live_video_magnification_tpu_torch.cli",
+                                 description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("info", help="video info")
+    p.add_argument("video")
+    p.set_defaults(fn=cmd_info)
+
+    p = sub.add_parser("magnify", help="offline magnification export")
+    p.add_argument("input")
+    p.add_argument("output")
+    p.add_argument("--start", type=int, default=0)
+    p.add_argument("--end", type=int, default=None)
+    p.add_argument("--file-fps", type=float, default=None)
+    p.add_argument("--chunk", type=int, default=32)
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--checkpoint-every", type=int, default=0)
+    p.add_argument("--time-parallel", action="store_true",
+                   help="sequence-parallel chunks: not ported yet (ROADMAP.md)")
+    p.add_argument("--split", default="none", choices=["none", "left-right", "top-bottom"],
+                   help="compose original|processed panes like the GUI export")
+    p.add_argument("--labels", action="store_true", help="burn in pane labels")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard the frame axis over hosts: not ported yet (ROADMAP.md)")
+    _add_mag_args(p)
+    p.set_defaults(fn=cmd_magnify)
+
+    args = ap.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,10 +2,13 @@
 
 The system has no weights: what must cross from a JAX run to a port run is the
 carried temporal state. Both packages lay it out as the same nested
-NamedTuples, so a state is a flat list of leaves in ``jax.tree.flatten`` order:
-``count``, then per level ``old`` (lowpass, cos, sin), per active level ``acc``
-(cos, sin), ``lo`` (reg0.cos, reg0.sin, reg1.cos, reg1.sin) and ``hi`` (the
-same). Checkpoints (``export/batch.py``) use the same order.
+NamedTuples, so a state is a flat list of leaves in ``jax.tree.flatten`` order.
+Phase: ``count``, then per level ``old`` (lowpass, cos, sin), per active level
+``acc`` (cos, sin), ``lo`` (reg0.cos, reg0.sin, reg1.cos, reg1.sin) and ``hi``
+(the same). Motion: ``count``, the levels+1 ``lowpass_hi`` planes, then the
+levels+1 ``lowpass_lo`` planes. Colour: ``count`` and the ``window``.
+Checkpoints (``export/batch.py``) use the same order; ``count`` is a host int
+in the port.
 
 The lane-sharded step (``parallel/riesz_sharded.py``) carries, per batch
 element, one RieszState per tile shard; the reference's sharded step carries
@@ -23,6 +26,8 @@ import numpy as np
 import torch
 
 from live_video_magnification_tpu_torch.device import resolve_device
+from live_video_magnification_tpu_torch.models import color as color_mode
+from live_video_magnification_tpu_torch.models import motion as motion_mode
 from live_video_magnification_tpu_torch.models.riesz import RieszDynParams, init_state
 from live_video_magnification_tpu_torch.parallel.riesz_sharded import (
     RieszShardPlan,
@@ -86,6 +91,10 @@ def state_from_numpy(like: Any, leaves: Sequence[np.ndarray], device) -> Any:
     return tree_unflatten(like, out)
 
 
+def _f32(v) -> float:
+    return float(np.asarray(v, np.float32))
+
+
 def riesz_state_from_jax(leaves: Sequence[np.ndarray], device=None,
                          pyr_io: Optional[str] = None):
     """The port's RieszState from the JAX RieszState's leaves (numpy, in
@@ -108,11 +117,43 @@ def riesz_state_from_jax(leaves: Sequence[np.ndarray], device=None,
 def riesz_dyn_from_jax(dyn: Any) -> RieszDynParams:
     """The port's RieszDynParams from a JAX RieszDynParams (or any 8-tuple of
     array-likes in its field order)."""
-    f = lambda v: float(np.asarray(v, np.float32))
     c3 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32).reshape(3))
     amp, thr, b_lo, a_lo, b_hi, a_hi, reset, force = dyn
-    return RieszDynParams(f(amp), f(thr), c3(b_lo), c3(a_lo), c3(b_hi), c3(a_hi),
+    return RieszDynParams(_f32(amp), _f32(thr), c3(b_lo), c3(a_lo), c3(b_hi), c3(a_hi),
                           bool(np.asarray(reset)), bool(np.asarray(force)))
+
+
+def motion_state_from_jax(leaves: Sequence[np.ndarray], device=None) -> motion_mode.MotionState:
+    """The port's MotionState from the JAX MotionState's leaves (numpy, in
+    ``jax.tree.flatten`` order: count, levels+1 hi planes, levels+1 lo
+    planes), on ``device`` (CUDA by default)."""
+    n = len(leaves)
+    if n < 5 or (n - 1) % 2:
+        raise ValueError(f"{n} leaves is not a MotionState (2*(levels+1) + 1 leaves)")
+    levels = (n - 1) // 2 - 1
+    channels, h, w = np.shape(leaves[1])
+    like = motion_mode.init_state(h, w, channels, levels, device="cpu")
+    return state_from_numpy(like, leaves, resolve_device(device))
+
+
+def color_state_from_jax(leaves: Sequence[np.ndarray], device=None) -> color_mode.ColorState:
+    """The port's ColorState from the JAX ColorState's leaves (count, window)."""
+    if len(leaves) != 2 or np.ndim(leaves[1]) != 4:
+        raise ValueError("a ColorState is two leaves: count and a [W, C, hs, ws] window")
+    return color_mode.ColorState(int(np.asarray(leaves[0])),
+                                 torch.tensor(np.asarray(leaves[1], np.float32),
+                                              device=resolve_device(device)))
+
+
+def motion_dyn_from_jax(dyn: Any) -> motion_mode.MotionDynParams:
+    """The port's MotionDynParams from a JAX MotionDynParams (or any 5-tuple
+    of array-likes in its field order)."""
+    return motion_mode.MotionDynParams(*(_f32(v) for v in dyn))
+
+
+def color_dyn_from_jax(dyn: Any) -> color_mode.ColorDynParams:
+    """The port's ColorDynParams from a JAX ColorDynParams (or any 3-tuple)."""
+    return color_mode.ColorDynParams(*(_f32(v) for v in dyn))
 
 
 def sharded_riesz_state_from_jax(leaves: Sequence[np.ndarray], mesh, plan: RieszShardPlan):

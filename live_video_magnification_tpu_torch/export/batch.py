@@ -2,9 +2,10 @@
 
 The counterpart of the reference package's ``export/batch.py``: frames go
 through the same chain step as live use, in chunks, with the temporal state
-carried across chunks. The state plus the frame cursor is saved to ``.npz``
-with the reference's leaf order and format version, so a long export can
-resume. Only the sequential form is ported; ``time_parallel=True`` raises.
+carried across chunks, in every mode. The state plus the frame cursor is
+saved to ``.npz`` with the reference's leaf order and format version (the
+host-int ``count`` as an int32 scalar), so a long export can resume. Only the
+sequential form is ported; ``time_parallel=True`` raises.
 """
 
 from __future__ import annotations
@@ -21,8 +22,8 @@ from live_video_magnification_tpu_torch.convert import state_from_numpy, state_t
 from live_video_magnification_tpu_torch.models.chain import MagnificationChain, _build_step
 from live_video_magnification_tpu_torch.models.params import ProcessorConfig
 
-# Carried-state format, as the reference package's: v2 is the 10-plane
-# RieszState with the shared phase accumulator.
+# Carried-state format, as the reference package's: v2 (phase: the 10-plane
+# RieszState with the shared phase accumulator; motion and colour unchanged).
 STATE_FORMAT_VERSION = 2
 # The static key's kernel flags: they enter the digest only where they differ
 # from their defaults, so a checkpoint written before the key had them (the

@@ -12,8 +12,9 @@ coefficients with the cutoff-change reset and the NaN-degenerate re-init of
 phase mode (MagnifyCore.hpp:226-254). Device side: every per-pixel stage, in
 planar [C, H, W] uint8/f32.
 
-Ported modes: PHASE and the identity (NONE, too-small frames, phase on gray).
-LAPLACE and COLOR raise NotImplementedError until they are ported.
+Modes: LAPLACE (motion), COLOR, PHASE and the identity (NONE, too-small
+frames, phase on gray). Their per-frame parameters are host values taken as
+f32, so a step reads nothing back from the card.
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ import numpy as np
 import torch
 
 from live_video_magnification_tpu_torch.device import resolve_device
+from live_video_magnification_tpu_torch.models import color as color_mode
+from live_video_magnification_tpu_torch.models import motion as motion_mode
 from live_video_magnification_tpu_torch.models import riesz as riesz_mode
 from live_video_magnification_tpu_torch.models.params import (
     MagnificationMode,
@@ -129,13 +132,19 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
     preprocess, downscale, gray_stage = _build_pre_stages(key)
 
     if mode is MagnificationMode.LAPLACE:
-        raise NotImplementedError(
-            "motion (LAPLACE) mode is not ported yet: ROADMAP.md queue 1, "
-            "'Motion and color modes'")
-    if mode is MagnificationMode.COLOR:
-        raise NotImplementedError(
-            "color mode is not ported yet: ROADMAP.md queue 1, 'Motion and color modes'")
-    if mode is MagnificationMode.PHASE and key.channels >= 3:
+        def model_step(state, frame, dyn):
+            return motion_mode.step(state, frame, dyn, levels=levels)
+
+        def init():
+            return motion_mode.init_state(oh, ow, key.channels, levels, device=device)
+    elif mode is MagnificationMode.COLOR:
+        def model_step(state, frame, dyn):
+            return color_mode.step(state, frame, dyn, levels=levels, framerate=key.framerate)
+
+        def init():
+            return color_mode.init_state(oh, ow, key.channels, levels, key.framerate,
+                                         device=device)
+    elif mode is MagnificationMode.PHASE and key.channels >= 3:
         def model_step(state, frame, dyn):
             return riesz_mode.step(state, frame, dyn, levels=levels, tail=key.tail,
                                    phase_fused=key.phase_fused, build=key.build,
@@ -206,9 +215,16 @@ class MagnificationChain:
         change recomputes the coefficients and sets ``reset_filters``
         (MagnifyCore.hpp:243-254); NaN coefficients set ``force_init``
         (:226). The identity path takes no parameters (None)."""
+        p = cfg.magnification
+        if key.mode is MagnificationMode.LAPLACE:
+            return motion_mode.MotionDynParams(
+                _f32(p.amplification), _f32(p.co_wavelength), _f32(p.co_low),
+                _f32(p.co_high), _f32(p.chrom_attenuation))
+        if key.mode is MagnificationMode.COLOR:
+            return color_mode.ColorDynParams(
+                _f32(p.amplification), _f32(p.co_low), _f32(p.co_high))
         if not (key.mode is MagnificationMode.PHASE and key.channels >= 3):
             return None
-        p = cfg.magnification
         cutoffs = (p.co_low, p.co_high, p.framerate)
         reset_filters = self._riesz_cutoffs is not None and cutoffs != self._riesz_cutoffs
         if self._riesz_cutoffs is None or reset_filters:

@@ -1,14 +1,17 @@
 """Parameter model of the processing chain.
 
-The counterpart of the reference package's ``models/params.py`` for the
-dataclasses and enum the chain needs (IProcessor.hpp:10-48). The UI unit
-mapping (MagnificationParamsUi.hpp) is still to come with the front ends.
+The counterpart of the reference package's ``models/params.py``: the
+algorithm-unit dataclasses and enum (IProcessor.hpp:10-48) and the single
+UI <-> algorithm unit mapping with the per-mode defaults
+(MagnificationParamsUi.hpp), kept value for value so the CLI and any later
+front end map sliders as the reference does.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import math
 
 
 class MagnificationMode(enum.Enum):
@@ -56,3 +59,133 @@ class ProcessorConfig:
     grayscale: bool = False
     preprocess: PreprocessParams = dataclasses.field(default_factory=PreprocessParams)
     magnification: MagnificationParams = dataclasses.field(default_factory=MagnificationParams)
+
+
+# --- UI mapping (MagnificationParamsUi.hpp) -----------------------------------------------------
+
+_TWO_PI = 6.283185307179586
+
+
+def motion_hz_to_blend(hz: float, fps: float) -> float:
+    """Laplace band Hz -> IIR blend coefficient: a = 1 - exp(-2*pi*fc/fps),
+    clamped to [0, 0.999999] (MagnificationParamsUi.hpp:29-34)."""
+    if fps <= 0.0:
+        fps = 30.0
+    if hz <= 0.0:
+        return 0.0
+    a = 1.0 - math.exp(-_TWO_PI * hz / fps)
+    return min(max(a, 0.0), 0.999999)
+
+
+def motion_blend_to_hz(blend: float, fps: float) -> float:
+    """Inverse of motion_hz_to_blend (MagnificationParamsUi.hpp:36-41)."""
+    if fps <= 0.0:
+        fps = 30.0
+    blend = min(max(blend, 0.0), 0.999999)
+    if blend <= 0.0:
+        return 0.0
+    return -(fps / _TWO_PI) * math.log(1.0 - blend)
+
+
+@dataclasses.dataclass
+class MagUiValues:
+    """UI-unit values; low/high are Hz in every mode (MagnificationParamsUi.hpp:14-23)."""
+
+    mode: MagnificationMode = MagnificationMode.LAPLACE
+    amplification: int = 20
+    wavelength: float = 50.0
+    low: float = 1.0    # Hz
+    high: float = 2.5   # Hz
+    chroma: int = 0
+    levels: int = 4
+    capture_fps: float = 30.0
+
+
+def defaults_for(mode: MagnificationMode) -> MagUiValues:
+    """Per-mode defaults — the reference's DEFAULT_MM_* (MagnificationParamsUi.hpp:44-72)."""
+    v = MagUiValues(mode=mode)
+    if mode is MagnificationMode.COLOR:
+        v.amplification = 100
+        v.low = 0.84
+        v.high = 1.43
+        v.levels = 3
+    elif mode is MagnificationMode.PHASE:
+        v.amplification = 50
+        v.wavelength = 50.0
+        v.low = 1.0
+        v.high = 5.0
+        v.levels = 5
+    else:  # LAPLACE and NONE
+        v.amplification = 20
+        v.wavelength = 50.0
+        v.low = 1.0
+        v.high = 5.0
+        v.chroma = 0
+        v.levels = 4
+    return v
+
+
+def clamp_band_to_nyquist(v: MagUiValues) -> MagUiValues:
+    """The panel's Nyquist clamp: band range is [0.05, fps/2]
+    (reference MagnificationControls.cpp:256-260)."""
+    fps = v.capture_fps if v.capture_fps > 0 else 30.0
+    lo_min, hi_max = 0.05, fps / 2.0
+    v.low = min(max(v.low, lo_min), hi_max)
+    v.high = min(max(v.high, lo_min), hi_max)
+    if v.high < v.low:
+        v.low, v.high = v.high, v.low
+    return v
+
+
+def to_params(v: MagUiValues) -> MagnificationParams:
+    """UI units -> algorithm units (MagnificationParamsUi.hpp:74-103)."""
+    common = dict(
+        mode=v.mode,
+        amplification=float(v.amplification),
+        levels=v.levels,
+        framerate=v.capture_fps,
+    )
+    if v.mode is MagnificationMode.COLOR:
+        return MagnificationParams(
+            co_wavelength=0.0, co_low=v.low, co_high=v.high, chrom_attenuation=0.0, **common
+        )
+    if v.mode is MagnificationMode.LAPLACE:
+        return MagnificationParams(
+            co_wavelength=v.wavelength * 10.0,  # UI % -> algorithm units
+            co_low=motion_hz_to_blend(v.low, v.capture_fps),
+            co_high=motion_hz_to_blend(v.high, v.capture_fps),
+            chrom_attenuation=v.chroma / 100.0,
+            **common,
+        )
+    if v.mode is MagnificationMode.PHASE:
+        return MagnificationParams(
+            co_wavelength=100.0 - v.wavelength,  # inverted to match Laplace's slider sense
+            co_low=v.low,
+            co_high=v.high,
+            chrom_attenuation=0.0,
+            **common,
+        )
+    return MagnificationParams(**common)
+
+
+def to_ui(p: MagnificationParams) -> MagUiValues:
+    """Algorithm units -> UI units (MagnificationParamsUi.hpp:105-132)."""
+    mode = MagnificationMode.LAPLACE if p.mode is MagnificationMode.NONE else p.mode
+    v = MagUiValues(
+        mode=mode,
+        amplification=int(p.amplification),
+        levels=p.levels,
+        capture_fps=p.framerate,
+    )
+    if mode is MagnificationMode.COLOR:
+        v.low, v.high = p.co_low, p.co_high
+    elif mode is MagnificationMode.LAPLACE:
+        v.wavelength = p.co_wavelength / 10.0
+        v.low = motion_blend_to_hz(p.co_low, p.framerate)
+        v.high = motion_blend_to_hz(p.co_high, p.framerate)
+        v.chroma = int(p.chrom_attenuation * 100.0)
+    elif mode is MagnificationMode.PHASE:
+        v.wavelength = 100.0 - p.co_wavelength
+        v.low = p.co_low
+        v.high = p.co_high
+    return v

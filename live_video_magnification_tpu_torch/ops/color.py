@@ -6,8 +6,10 @@ The counterpart of the reference package's ``ops/color.py``:
     CV_32F, with the exact sRGB gamma curve and D65 white point;
   * bgr_to_gray_u8: cv::cvtColor COLOR_BGR2GRAY on CV_8U, OpenCV's 15-bit
     fixed point, bit-exact;
+  * bgr_to_gray: cv::cvtColor COLOR_BGR2GRAY on CV_32F;
   * to_u8: cv::Mat::convertTo(CV_8U, alpha, beta), round half to even, then
-    saturate.
+    saturate; alpha and beta may be 0-d tensors (colour mode rescales by the
+    output's own min and max without reading them back to the host).
 
 Layout is planar [C, H, W] f32 in BGR order. PyTorch has no cube root, so the
 CIE f(t) uses ``t ** (1/3)`` on t > 0.008856: a few f32 ulps from a true cube
@@ -90,7 +92,8 @@ def bgr_to_gray_u8(bgr_u8: torch.Tensor) -> torch.Tensor:
     return y.to(torch.uint8)[None]
 
 
-def to_u8(x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0) -> torch.Tensor:
+def to_u8(x: torch.Tensor, alpha: float | torch.Tensor = 1.0,
+          beta: float | torch.Tensor = 0.0) -> torch.Tensor:
     """cv::Mat::convertTo(CV_8U, alpha, beta): rint (half to even) then saturate."""
     v = torch.round(x * alpha + beta)
     return torch.clamp(v, 0.0, 255.0).to(torch.uint8)
@@ -99,3 +102,8 @@ def to_u8(x: torch.Tensor, alpha: float = 1.0, beta: float = 0.0) -> torch.Tenso
 def u8_to_unit_f32(x_u8: torch.Tensor) -> torch.Tensor:
     """convertTo(CV_32F, 1/255): u8 -> [0,1] float32 (times float32(1/255))."""
     return x_u8.to(torch.float32) * _INV_255_F32
+
+
+def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
+    """Float BGR -> gray (cv::cvtColor CV_32F weights), [3,H,W] -> [1,H,W]."""
+    return (0.114 * bgr[0] + 0.587 * bgr[1] + 0.299 * bgr[2])[None]

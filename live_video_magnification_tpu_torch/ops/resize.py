@@ -2,6 +2,9 @@
 
 The counterpart of the reference package's ``ops/resize.py``:
 
+  * resize_linear: cv::resize INTER_LINEAR (default), which absorbs the pyrUp
+    rounding drift of colour mode's reconstruction (SpatialFilter.cpp:48);
+    two matmuls with host-built weights in IEEE f32;
   * resize_area: cv::resize INTER_AREA shrink (the 1/2, 1/4, 1/8 preprocess
     downscale, PreprocessProcessor.cpp:37-41). Integer factors are an exact
     box average (reshape-mean); other factors are two matmuls with host-built
@@ -59,6 +62,29 @@ def resize_matrix(src_len: int, dst_len: int, kind: str) -> np.ndarray:
     return m.astype(np.float32)
 
 
+@lru_cache(maxsize=8)
+def _device_matrix(src_len: int, dst_len: int, kind: str, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """resize_matrix on ``device``, copied there once: a host-to-device copy
+    inside a step would synchronise the host with the card every frame. A
+    4K-wide matrix is ~60 MB, so only a few are kept."""
+    return torch.as_tensor(resize_matrix(src_len, dst_len, kind), dtype=dtype, device=device)
+
+
+def _apply(x: torch.Tensor, out_hw: Tuple[int, int], kind: str) -> torch.Tensor:
+    """out = R @ x @ C^T over the trailing two dims."""
+    r = _device_matrix(x.shape[-2], out_hw[0], kind, x.dtype, x.device)
+    c = _device_matrix(x.shape[-1], out_hw[1], kind, x.dtype, x.device)
+    return torch.matmul(torch.matmul(r, x), c.T)
+
+
+def resize_linear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv::resize INTER_LINEAR on [..., H, W] float; the same size is x itself."""
+    if tuple(out_hw) == (x.shape[-2], x.shape[-1]):
+        return x
+    return _apply(x, out_hw, "linear")
+
+
 def resize_area(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """cv::resize INTER_AREA (shrinking) on [..., H, W] float."""
     h, w = x.shape[-2], x.shape[-1]
@@ -69,9 +95,7 @@ def resize_area(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
         fh, fw = h // oh, w // ow
         r = x.reshape(x.shape[:-2] + (oh, fh, ow, fw))
         return r.mean(dim=(-3, -1))
-    r = torch.as_tensor(resize_matrix(h, oh, "area"), dtype=x.dtype, device=x.device)
-    c = torch.as_tensor(resize_matrix(w, ow, "area"), dtype=x.dtype, device=x.device)
-    return torch.matmul(torch.matmul(r, x), c.T)
+    return _apply(x, out_hw, "area")
 
 
 def resize_nearest_even_inject(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

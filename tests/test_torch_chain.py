@@ -255,16 +255,18 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_modes_and_paths_raise():
+    """What is still unported raises (the time-parallel clip path); frames too
+    small to magnify are the identity in every mode, as in the reference.
+    LAPLACE and COLOR are ported: tests/test_torch_modes.py holds them."""
     tc = TChain(device="cpu")
-    frame = _clip()[0]
-    for mode in (tparams.MagnificationMode.LAPLACE, tparams.MagnificationMode.COLOR):
-        cfg = tparams.ProcessorConfig(magnification=tparams.MagnificationParams(mode=mode))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tc.process(frame, cfg)
     _, tcfg = _cfg_pair()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ClipProcessor(tcfg, H, W, 3, time_parallel=True, device="cpu")
-    # too small to magnify: identity, as the reference
     tiny = _clip()[0][:5, :9]
-    out, orig = tc.process(tiny, dataclasses.replace(tcfg))
-    np.testing.assert_array_equal(out.numpy(), tiny)
+    for mode in tparams.MagnificationMode:
+        cfg = dataclasses.replace(tcfg, magnification=dataclasses.replace(
+            tcfg.magnification, mode=mode))
+        out, orig = tc.process(tiny, cfg)
+        np.testing.assert_array_equal(out.numpy(), tiny)
+        np.testing.assert_array_equal(orig.numpy(), tiny)
+        assert tc._key.mode is tparams.MagnificationMode.NONE

@@ -1,7 +1,8 @@
 """Card-only tests of the port: the CUDA stencil, build and tail kernels
-(with their bf16 arms) against their plain versions, and the phase step
+(with their bf16 arms) against their plain versions, the phase step
 (under each tail configuration, each build and the fast flags) and chain on
-the card against the CPU.
+the card against the CPU, and the motion and colour modes (step, chain and
+ClipProcessor) on the card against the CPU.
 
 Marked ``cuda``; each test decides inside itself whether a card exists and
 skips otherwise. They import neither JAX nor cv2, so they run where only torch
@@ -624,6 +625,71 @@ def test_step_on_the_card_matches_the_cpu_under_each_build(cuda, flags):
     per_frame = {"fused": 3}.get(flags.get("build"), 2)
     assert stencils.LAUNCHES["riesz_build_level"] == before + 5 * per_frame
     assert gpu.old[0].lowpass.dtype == stencils.DTYPES[pyr_io]
+
+
+# ---------------------------------------------------------------- motion and colour modes
+
+def _mode_cfg(mode, levels, fps):
+    from live_video_magnification_tpu_torch.models import params
+
+    ui = params.defaults_for(params.MagnificationMode(mode))
+    ui.levels, ui.capture_fps = levels, fps
+    return params.ProcessorConfig(magnification=params.to_params(ui))
+
+
+@pytest.mark.parametrize("mode,t,fps", [("laplace", 6, 30.0), ("color", 20, 8.0)])
+@pytest.mark.parametrize("gray", [False, True], ids=["color", "gray"])
+def test_motion_and_color_on_the_card_match_the_cpu(cuda, mode, t, fps, gray):
+    """136x240 at each mode's default depth (motion 4, colour 3); colour at
+    8 fps so its 16-frame window fills and rolls. Motion within 1 LSB of the
+    CPU, colour >= 45 dB with the warm-up frame passed through; no stencil or
+    tail kernel is launched."""
+    import dataclasses
+
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+    from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    cfg = dataclasses.replace(_mode_cfg(mode, 4 if mode == "laplace" else 3, fps),
+                              grayscale=gray)
+    gpu, cpu = MagnificationChain(device=cuda), MagnificationChain(device="cpu")
+    before = dict(stencils.LAUNCHES), dict(tail.LAUNCHES)
+    for i, f in enumerate(moving_clip(t, 136, 240, seed=8)):
+        a = gpu.process(torch.from_numpy(f).to(cuda), cfg)[0].cpu().numpy()
+        b = cpu.process(f, cfg)[0].numpy()
+        lsb = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+        if mode == "laplace":
+            assert lsb <= 1, f"{mode} frame {i}: max {lsb} LSB"
+        else:
+            assert psnr_u8(a, b) >= 45.0, f"{mode} frame {i}: {psnr_u8(a, b):.2f} dB"
+            if i == 0:
+                np.testing.assert_array_equal(a, b)
+    assert (dict(stencils.LAUNCHES), dict(tail.LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("mode", ["laplace", "color"])
+def test_clip_processor_on_the_card_equals_the_chain_and_resumes(cuda, mode, tmp_path):
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w = 72, 128
+    cfg = _mode_cfg(mode, 3, 8.0)
+    clip = moving_clip(18, h, w, seed=9)
+    chain = MagnificationChain(device=cuda)
+    per_frame = np.stack([chain.process(f, cfg)[0].cpu().numpy() for f in clip])
+    tchw = np.ascontiguousarray(clip.transpose(0, 3, 1, 2))
+    proc = ClipProcessor(cfg, h, w, 3, device=cuda)
+    processed, _ = proc.process_chunk(torch.from_numpy(tchw).to(cuda))
+    np.testing.assert_array_equal(processed.transpose(0, 2, 3, 1), per_frame)
+    first = ClipProcessor(cfg, h, w, 3, device=cuda)
+    a, _ = first.process_chunk(tchw[:7])
+    first.save_checkpoint(str(tmp_path / "ck"))
+    resumed = ClipProcessor(cfg, h, w, 3, device=cuda)
+    assert resumed.load_checkpoint(str(tmp_path / "ck")) == 7
+    b, _ = resumed.process_chunk(tchw[7:])
+    np.testing.assert_array_equal(np.concatenate([a, b]), processed)
 
 
 # ---------------------------------------------------------------- K10 and the sharded step
