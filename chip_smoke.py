@@ -59,7 +59,8 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
   7. the column halo exchange (K10, ops/hopper/halo.py) against its plain
      version, bit for bit, for 1, 2, 4 and 8 shards on the card, halos 2, 4
      and 6, both right modes, with and without a leading stack of 6 planes,
-     and every exchange of the 4K sharded frame; timed at those shapes;
+     and every exchange of the 4K sharded frame; timed at those shapes by
+     events and by graph replay, with the bound's share of each;
   8. the lane-sharded phase step (parallel/riesz_sharded.py, every halo
      exchange through K10) at 2160x3840, levels=6, 6 frames, tail mxu: a
      (1,4) mesh of cuda:0 repeated (virtual shards), and a mesh of 1 with the
@@ -79,7 +80,20 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      (motion 4 frames within 1 LSB; colour 20 frames at 8 fps, >= 45 dB),
      and one steady step of each under
      ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises).
-     cuBLAS and cuDNN are asserted IEEE f32 first.
+     cuBLAS and cuDNN are asserted IEEE f32 first;
+ 10. the time-parallel clip path (``ClipProcessor(time_parallel=True)``,
+     ``models/*.py::process_clip_parallel``) at 2160x3840 in all three modes
+     (phase levels 6; motion and colour at their defaults), one chunk of
+     TP_CHUNK host frames as ``cli.py magnify --time-parallel`` passes it,
+     beside the sequential ClipProcessor on the same frames, in two passes,
+     the second in reverse order: ms/frame, peak memory and launches of each
+     path; phase launches its 25 f32 stencils a frame (K1-K4) and no tail
+     kernel, motion and colour none of K1-K10; the time-parallel frames
+     against the sequential ones (motion and colour within 1 LSB, phase
+     >= 40 dB a frame, with its max LSB and share of pixels over 1 LSB), and
+     two chunks against one within the same bars; then at 1080x1920 on the
+     card against the port's CPU path (phase and motion 4 frames, colour 20
+     at 8 fps so its window rolls, each in two chunks).
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -711,13 +725,18 @@ def tail_kernel_time(dev, tl, sizes):
 
 def profile_chain(torch, chain, frames, cfg):
     """Device time by kernel over a few steady chain frames (torch.profiler)."""
+    return profile_run(torch, lambda: [chain.process(f, cfg) for f in frames], len(frames))
+
+
+def profile_run(torch, run, n):
+    """Device time by kernel of ``run()``, which processes ``n`` frames
+    (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in frames:
-            chain.process(f, cfg)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies): a CPU op's device time
@@ -731,7 +750,6 @@ def profile_chain(torch, chain, frames, cfg):
     copies = [e for e in events if e.key.startswith(("Memcpy", "Memset"))]
     device_ms = dev_ms(events)
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:15]
-    n = len(frames)
     return dict(frames=n, wall_ms=1e3 * wall, device_ms=device_ms,
                 device_busy_share=device_ms / (1e3 * wall),
                 stencil_kernels_ms=dev_ms(stencils), tail_kernels_ms=dev_ms(tails),
@@ -1155,6 +1173,212 @@ def slice_card_vs_cpu_modes(torch, dev, st, tl, hl, h=1080, w=1920):
         del gpu, cpu
 
 
+TP_CHUNK = 32  # cli.py magnify's default --chunk; phase's peak fits the card (PERF.md)
+TP_MODES = ("phase", "laplace", "color")  # the first pass's order; reversed in the second
+TP_NAMES = {"phase": "phase", "laplace": "motion", "color": "color"}
+
+
+def tp_cfg(mode, fps=None):
+    """The time-parallel cells' configurations: phase as the 4K phase slice
+    (levels 6), motion and colour at their defaults (colour at ``fps``
+    where given)."""
+    return cfg_4k(6) if mode == "phase" else mode_cfg(mode, fps=fps)
+
+
+def tp_expected(mode, frames, h, w, levels, *modules):
+    """Every launch count of the modules for ``frames`` frames of ``mode``'s
+    time-parallel path: phase's f32 stencils, nothing else."""
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+
+    want = {k: 0 for k in launch_counts(*modules)}
+    if mode == "phase":
+        want.update({k: v * frames for k, v in stencil_launches(h, w, levels).items()})
+    return want
+
+
+def tp_frames_check(name, got, ref, phase):
+    """The time-parallel bars against ``ref``: phase >= 40 dB a frame, motion
+    and colour within 1 LSB. Returns the frame statistics."""
+    dbs, lsbs = frame_stats(got, ref)
+    over = float(np.mean(np.abs(got.astype(np.int16) - ref.astype(np.int16)) > 1))
+    if (phase and min(dbs) < 40.0) or (not phase and max(lsbs) > 1):
+        raise AssertionError(f"{name}: {dbs} dB, {lsbs} LSB")
+    return dict(min_psnr_db=min(dbs), max_lsb=max(lsbs), share_over_1_lsb=over)
+
+
+def run_clip(torch, dev, proc, chunks, modules):
+    """``proc.process_chunk`` of each host chunk, counts reset and the peak
+    reset just before. Returns (outputs, seconds, launch counts, peak)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(*modules)
+    outs = []
+    t0 = time.perf_counter()
+    for chunk in chunks:
+        outs.append(proc.process_chunk(chunk)[0])  # host arrays: synchronizes
+    seconds = time.perf_counter() - t0
+    return (np.concatenate(outs), seconds, launch_counts(*modules),
+            torch.cuda.max_memory_allocated(dev))
+
+
+def host_copies_ms(torch, dev, tchw):
+    """ms a frame of process_chunk's host copies of a [T, 3, H, W] u8 chunk:
+    the pageable chunk to the card, and two u8 stacks of its size back to
+    the host (processed and original), by the host clock."""
+    t = tchw.shape[0]
+    host = torch.from_numpy(tchw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    on_card = host.to(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back = [on_card.cpu().numpy() for _ in range(2)]
+    t2 = time.perf_counter()
+    del on_card, back
+    return 1e3 * (t1 - t0) / t, 1e3 * (t2 - t1) / t
+
+
+def tp_scan_time(torch, dev, t, h, w):
+    """Device ms of the time-parallel scans alone, by CUDA events, on
+    standard-normal inputs at the 4K cells' shapes: phase's
+    df2_dual_filter_parallel with warm inits on every active level of
+    levels 6, twice (cos and sin); motion's two EMA scans on every level of
+    levels 4, 3 channels. Returns {mode: ms a frame}."""
+    from live_video_magnification_tpu_torch.models.motion import _ema_combine
+    from live_video_magnification_tpu_torch.ops.pyramid import pyramid_sizes
+    from live_video_magnification_tpu_torch.ops.riesz import riesz_level_sizes
+    from live_video_magnification_tpu_torch.ops.temporal import (
+        associative_scan,
+        df2_dual_filter_parallel,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    coeffs = [tuple(float(x) for x in c) for c in tail_coeffs()]
+    phase = 0.0
+    for lh, lw in riesz_level_sizes(h, w, 6)[:-1]:
+        diff, inits = normal(t, lh, lw), [normal(lh, lw) for _ in range(5)]
+        phase += 2 * cuda_ms(lambda: df2_dual_filter_parallel(
+            diff, *coeffs, acc_init=inits[0], lo_init=inits[1:3], hi_init=inits[3:]), 3, 1)
+        del diff, inits
+    motion = 0.0
+    for lh, lw in [(h, w)] + pyramid_sizes(h, w, 4)[:3]:
+        a = torch.full((t, 1, 1, 1), 0.5, device=dev)
+        b = normal(t, 3, lh, lw)
+        motion += 2 * cuda_ms(lambda: associative_scan(_ema_combine, (a, b)), 3, 1)
+        del a, b
+    torch.cuda.empty_cache()
+    return {"phase": phase / t, "laplace": motion / t}
+
+
+def slice_4k_time_parallel(torch, dev, st, tl, hl, frames):
+    """The time-parallel path at 2160x3840 in all three modes against the
+    sequential ClipProcessor on the same TP_CHUNK host frames, in two passes
+    (the second in reverse order). Asserts the launches (phase: its f32
+    stencils, 25 a frame; no tail kernel; motion and colour none), the frames
+    against the sequential ones, and, in the first pass, two chunks against
+    one."""
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+
+    t, h, w = frames.shape[0], frames.shape[1], frames.shape[2]
+    tchw = np.ascontiguousarray(frames.transpose(0, 3, 1, 2))
+    modules = (st, tl, hl)
+    card = torch.cuda.get_device_name(dev)
+    h2d, d2h = host_copies_ms(torch, dev, tchw)
+    scans = tp_scan_time(torch, dev, t, h, w)
+    log(phase="tp_host_copies", card=card, shape=[t, 3, h, w], h2d_ms_per_frame=h2d,
+        d2h_two_stacks_ms_per_frame=d2h, what="process_chunk's copies alone: the pageable "
+        "u8 chunk to the card, and two u8 stacks of its size back",
+        scan_device_ms_per_frame={"phase": scans["phase"], "motion": scans["laplace"]})
+    for n_pass, order in enumerate((TP_MODES, TP_MODES[::-1]), start=1):
+        for mode in order:
+            cfg = tp_cfg(mode)
+            name = TP_NAMES[mode]
+            row = dict(phase="slice_4k_time_parallel", mode=name, run=n_pass, card=card,
+                       shape=[h, w], frames=t, chunk=t,
+                       per_chunk="process_chunk of TP_CHUNK host frames, readback included")
+            with flag_env({}):
+                runs = {}
+                for path, parallel in (("time_parallel", True), ("sequential", False)):
+                    proc = ClipProcessor(cfg, h, w, 3, time_parallel=parallel, device=dev)
+                    out, sec, launched, peak = run_clip(torch, dev, proc, [tchw], modules)
+                    want = tp_expected(mode, t, h, w, proc.key.levels, *modules)
+                    if parallel and launched != want:
+                        raise AssertionError(f"4K time-parallel {name}: launches {launched} "
+                                             f"!= expected {want}")
+                    runs[path] = out
+                    row[path] = dict(ms_per_frame=1e3 * sec / t, fps=t / sec,
+                                     peak_memory_bytes=peak,
+                                     launches={k: v for k, v in launched.items() if v})
+                    row["levels"] = proc.key.levels
+                    del proc
+                moved = [int(np.count_nonzero(runs["time_parallel"][i] != tchw[i]))
+                         for i in range(t)]
+                if min(moved[1:]) == 0:
+                    raise AssertionError(f"4K time-parallel {name}: frames left unchanged")
+                row["against_sequential"] = tp_frames_check(
+                    f"4K time-parallel {name} against sequential", runs["time_parallel"],
+                    runs["sequential"], mode == "phase")
+                if n_pass == 1:
+                    proc = ClipProcessor(cfg, h, w, 3, time_parallel=True, device=dev)
+                    prof = profile_run(torch, lambda: proc.process_chunk(tchw), t)
+                    log(phase="profile_4k_time_parallel", mode=name, card=card,
+                        scan_device_ms_per_frame=scans.get(mode), **prof)
+                    proc = ClipProcessor(cfg, h, w, 3, time_parallel=True, device=dev)
+                    two = run_clip(torch, dev, proc, [tchw[:t // 2], tchw[t // 2:]], modules)
+                    row["two_chunks_against_one"] = tp_frames_check(
+                        f"4K time-parallel {name} in two chunks", two[0],
+                        runs["time_parallel"], mode == "phase")
+                    row["two_chunks_ms_per_frame"] = 1e3 * two[1] / t
+                    del proc, two
+                row["speed_time_parallel_over_sequential"] = (
+                    row["sequential"]["ms_per_frame"] / row["time_parallel"]["ms_per_frame"])
+                log(**row)
+                del runs
+
+
+def slice_card_vs_cpu_time_parallel(torch, dev, st, tl, hl, h=1080, w=1920):
+    """The time-parallel path at 1080x1920 on the card against the port's CPU
+    path, each in two chunks: phase (levels 6) and motion 4 frames, colour 20
+    frames at 8 fps so its 16-frame window fills and rolls across the chunk
+    boundary. Phase >= 40 dB a frame with its f32 stencils launched (K5 once
+    a frame, at level 4), motion within 1 LSB, colour >= 45 dB with the
+    warm-up frame the input."""
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    clip = moving_clip(20, h, w, seed=SEED + 5)
+    tchw = np.ascontiguousarray(clip.transpose(0, 3, 1, 2))
+    modules = (st, tl, hl)
+    for mode, t, fps in (("phase", 4, None), ("laplace", 4, None), ("color", 20, 8.0)):
+        cfg, name = tp_cfg(mode, fps), TP_NAMES[mode]
+        t0 = time.perf_counter()
+        chunks = [tchw[:t // 2], tchw[t // 2:t]]
+        with flag_env({}):
+            gpu = ClipProcessor(cfg, h, w, 3, time_parallel=True, device=dev)
+            a, _, launched, _ = run_clip(torch, dev, gpu, chunks, modules)
+            cpu = ClipProcessor(cfg, h, w, 3, time_parallel=True, device="cpu")
+            b = np.concatenate([cpu.process_chunk(c)[0] for c in chunks])
+        want = tp_expected(mode, t, h, w, gpu.key.levels, *modules)
+        if launched != want:
+            raise AssertionError(f"1080p time-parallel {name}: launches {launched} != {want}")
+        dbs, lsbs = frame_stats(a, b)
+        if ((mode == "phase" and min(dbs) < 40.0) or (mode == "laplace" and max(lsbs) > 1)
+                or (mode == "color" and (min(dbs) < 45.0
+                                         or not np.array_equal(a[0], tchw[0])))):
+            raise AssertionError(f"1080p time-parallel {name}: card vs CPU {dbs} dB, "
+                                 f"{lsbs} LSB")
+        log(phase="slice_1080p_card_vs_cpu", config=f"time_parallel_{name}", card=torch.cuda.get_device_name(dev),
+            shape=[h, w], levels=gpu.key.levels, framerate=cfg.magnification.framerate,
+            frames=t, chunks=[len(c) for c in chunks], psnr_db=dbs, min_psnr_db=min(dbs),
+            max_lsb=lsbs, max_lsb_all=max(lsbs),
+            launches_per_frame={k: v / t for k, v in launched.items() if v},
+            seconds=time.perf_counter() - t0)
+        del gpu, cpu
+
+
 def bound(nbytes: float, ops: float, bf16_ops: float = 0.0):
     """(bound ms, what bounds it) on the published H100 SXM peaks: ``ops`` on
     f32 operands at the f32 rate, ``bf16_ops`` on bf16 operands at the bf16
@@ -1494,8 +1718,10 @@ def halo_kernel_check(dev, hl, plan4k):
 
 
 def halo_kernel_time(dev, hl, plan4k):
-    """ms of K10 and of its plain version on 4 virtual shards of the 4K frame
-    at each exchange shape of its frame, with the bound from this run's
+    """ms of K10 (by events, the wrapper's host cost included, and by CUDA
+    graph replay, the kernel alone) and of its plain version on 4 virtual
+    shards of the 4K frame at each exchange shape of its frame, with the
+    bound from this run's
     shapes: each input read once (n * rows * w_l values), each output
     written once (n * rows * (w_l + 2h)). Returns (rows, the per-frame sums)."""
     rng = np.random.default_rng(SEED + 10)
@@ -1505,20 +1731,24 @@ def halo_kernel_time(dev, hl, plan4k):
     for shape, halo, mode in dict.fromkeys(calls):
         xs = halo_shards(rng, [dev] * n, shape)
         ms = cuda_ms(lambda: hl.halo_exchange_cols_rdma(xs, halo, mode), 50)
+        graph = graph_ms(lambda: hl.halo_exchange_cols_rdma(xs, halo, mode), 50)
         plain_ms = cuda_ms(lambda: hl.halo_exchange_cols_rdma_plain(xs, halo, mode), 20)
         elems = int(np.prod(shape[:-1])) * n
         nbytes = 4 * elems * (2 * shape[-1] + 2 * halo)
         bound_ms, bound_by = bound(nbytes, 0)
         row = dict(kernel="halo_exchange_cols_rdma", shards=n, shape=list(shape), halo=halo,
-                   right_mode=mode, ms=ms, plain_ms=plain_ms, library_ms=None,
-                   bound_ms=bound_ms, bound_share=bound_ms / ms, bound_by=bound_by,
+                   right_mode=mode, ms=ms, graph_ms=graph, plain_ms=plain_ms, library_ms=None,
+                   bound_ms=bound_ms, bound_share=bound_ms / ms,
+                   graph_bound_share=bound_ms / graph, bound_by=bound_by,
                    bytes=nbytes, per_frame=calls.count((shape, halo, mode)))
         rows.append(row)
         per_call[(shape, halo, mode)] = row
         log(phase="halo_kernel_time", **row)
-    frame = {k: sum(per_call[c][k] for c in calls) for k in ("ms", "plain_ms", "bound_ms")}
+    frame = {k: sum(per_call[c][k] for c in calls)
+             for k in ("ms", "graph_ms", "plain_ms", "bound_ms")}
     log(phase="halo_kernel_time_per_frame", shards=n, exchanges=len(calls), **frame,
         bound_share=frame["bound_ms"] / frame["ms"],
+        graph_bound_share=frame["bound_ms"] / frame["graph_ms"],
         library="none: no PyTorch call takes the shards and returns their haloed strips "
                 "(F.pad of the gathered frame gives one padded array, after a gather)")
     return rows, frame
@@ -1680,10 +1910,12 @@ def main() -> int:
         return _build.build(), time.perf_counter() - t0
 
     # nvcc runs in processes of its own: the host makes the 4K clip meanwhile
+    # (TP_CHUNK frames for the time-parallel cells; the first 8 for the others)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(build)
-        frames = frames_4k()
+        frames_tp = frames_4k(t=TP_CHUNK)
         paths, build_s = building.result()
+    frames = frames_tp[:8]
     ptxas = [ln.strip() for p in paths.values() for ln in p.with_suffix(".log").read_text().splitlines()
              if "registers" in ln or "Compiling entry" in ln]
     log(phase="build", seconds=build_s, compiled_now=fresh, libraries=[p.name for p in paths.values()], ptxas=ptxas)
@@ -1706,10 +1938,13 @@ def main() -> int:
     log(phase="ieee_f32", **assert_ieee_f32(torch))
     slice_4k_modes(torch, dev, st, tl, hl, frames)
     del frames, jnp_out
+    slice_4k_time_parallel(torch, dev, st, tl, hl, frames_tp)
+    del frames_tp
     flagship = slice_card_vs_cpu(torch, dev, st, tl, "jnp")
     slice_card_vs_cpu(torch, dev, st, tl, "level")
     slice_card_vs_cpu(torch, dev, st, tl, "fast")
     slice_card_vs_cpu_modes(torch, dev, st, tl, hl)
+    slice_card_vs_cpu_time_parallel(torch, dev, st, tl, hl)
     sharded = slice_4k_sharded(torch, dev, st, tl, hl)
 
     path = lambda name: " ".join(f"{k}={v}" for k, v in CONFIGS[name][0].items()) or "defaults"
@@ -1781,7 +2016,8 @@ def main() -> int:
                         replaces=HALO_REPLACES, launches=launched,
                         path=f"2160x3840 levels=6, sharded step, (1,4) mesh of one card, "
                              f"tail={SHARDED_TAIL}",
-                        max_abs_err=halo_err, ms=top["ms"], plain_ms=top["plain_ms"],
+                        max_abs_err=halo_err, ms=top["ms"], graph_ms=top["graph_ms"],
+                        plain_ms=top["plain_ms"],
                         bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
                         shape=top["shape"], shards=top["shards"], halo=top["halo"],
                         per_frame=halo_frame))

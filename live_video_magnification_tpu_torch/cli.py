@@ -6,8 +6,9 @@
 The counterpart of the reference package's ``cli.py`` for its offline
 commands: ``info`` prints the container's frame count, size, rate and the
 largest pyramid depth; ``magnify`` decodes a file, runs the frames through
-the sequential ``ClipProcessor`` in chunks (motion, colour or phase) and
-encodes the result at constant host memory, with checkpoints and resume.
+``ClipProcessor`` in chunks (motion, colour or phase; frame by frame, or
+each chunk at once under ``--time-parallel``) and encodes the result at
+constant host memory, with checkpoints and resume.
 
 Parameters are taken in UI units (Hz bands, percent sliders) and mapped
 through the single UI <-> algorithm mapping (``models/params.py``), as the
@@ -15,9 +16,8 @@ reference's panels do. ``--device`` (``cuda`` by default, or ``cpu``) picks
 where the frames are processed: without a card, ``cuda`` fails rather than
 falling back to the CPU. Decoding and encoding need OpenCV (cv2).
 
-Not ported yet (ROADMAP.md): ``--time-parallel`` and ``--distributed``
-(they fail with a message), and the ``live``, ``record``, ``cameras`` and
-``bench`` commands.
+Not ported yet (ROADMAP.md): ``--distributed`` (it fails with a message),
+and the ``live``, ``record``, ``cameras`` and ``bench`` commands.
 """
 
 from __future__ import annotations
@@ -110,10 +110,10 @@ def cmd_info(args) -> int:
 def cmd_magnify(args) -> int:
     """Streaming offline export: decode -> device chunk -> encode at constant
     host memory (a long 4K clip never materializes in RAM)."""
-    for flag, what in (("time_parallel", "--time-parallel"), ("distributed", "--distributed")):
-        if getattr(args, flag, False):
-            print(f"error: {what} is not ported yet, see ROADMAP.md (queue 1)", file=sys.stderr)
-            return 2
+    if getattr(args, "distributed", False):
+        print("error: --distributed is not ported yet, see ROADMAP.md (queue 1 item 2)",
+              file=sys.stderr)
+        return 2
     _apply_fast_mode(args)
 
     import numpy as np
@@ -144,7 +144,7 @@ def cmd_magnify(args) -> int:
     h, w = probe.shape[0], probe.shape[1]
     cfg = _config_from_args(args, fps)
 
-    proc = ClipProcessor(cfg, h, w, channels, device=device)
+    proc = ClipProcessor(cfg, h, w, channels, time_parallel=args.time_parallel, device=device)
     start = args.start
     if args.checkpoint and os.path.exists(args.checkpoint + ".npz"):
         try:
@@ -326,12 +326,14 @@ def main(argv=None) -> int:
     p.add_argument("--checkpoint", default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--time-parallel", action="store_true",
-                   help="sequence-parallel chunks: not ported yet (ROADMAP.md)")
+                   help="sequence-parallel chunks (associative scans over T) instead of "
+                        "the sequential per-frame step; output within 1 LSB of it")
     p.add_argument("--split", default="none", choices=["none", "left-right", "top-bottom"],
                    help="compose original|processed panes like the GUI export")
     p.add_argument("--labels", action="store_true", help="burn in pane labels")
     p.add_argument("--distributed", action="store_true",
-                   help="shard the frame axis over hosts: not ported yet (ROADMAP.md)")
+                   help="shard the frame axis over hosts: not ported yet (ROADMAP.md, "
+                        "queue 1 item 2)")
     _add_mag_args(p)
     p.set_defaults(fn=cmd_magnify)
 

@@ -2,10 +2,13 @@
 
 The counterpart of the reference package's ``export/batch.py``: frames go
 through the same chain step as live use, in chunks, with the temporal state
-carried across chunks, in every mode. The state plus the frame cursor is
-saved to ``.npz`` with the reference's leaf order and format version (the
-host-int ``count`` as an int32 scalar), so a long export can resume. Only the
-sequential form is ported; ``time_parallel=True`` raises.
+carried across chunks, in every mode. Under ``time_parallel=True`` a chunk
+goes through the stateless stages batched and then the mode's time-parallel
+form (``models/chain.py::parallel_clip_fn``), with the same carried state,
+so checkpoints and chunk boundaries are interchangeable between the two
+paths. The state plus the frame cursor is saved to ``.npz`` with the
+reference's leaf order and format version (the host-int ``count`` as an
+int32 scalar), so a long export can resume.
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ import numpy as np
 import torch
 
 from live_video_magnification_tpu_torch.convert import state_from_numpy, state_to_numpy
-from live_video_magnification_tpu_torch.models.chain import MagnificationChain, _build_step
+from live_video_magnification_tpu_torch.models.chain import (
+    MagnificationChain,
+    _build_pre_stages,
+    _build_step,
+    parallel_clip_fn,
+)
 from live_video_magnification_tpu_torch.models.params import ProcessorConfig
 
 # Carried-state format, as the reference package's: v2 (phase: the 10-plane
@@ -32,16 +40,18 @@ _FLAG_FIELDS = ("phase_fused", "tail", "build", "mxu_dtype", "pyr_io", "tail_io"
 
 
 class ClipProcessor:
-    """Processor for [T, C, H, W] u8 chunks with carried state, one frame
-    after another. ``device`` defaults to CUDA and raises without a card;
-    pass ``device="cpu"`` for the CPU."""
+    """Processor for [T, C, H, W] u8 chunks with carried state.
+
+    time_parallel=False: the chain step, one frame after another.
+    time_parallel=True: the whole chunk at once, the mode's temporal
+    recurrences as associative scans or window gathers
+    (``models/*.py::process_clip_parallel``).
+
+    ``device`` defaults to CUDA and raises without a card; pass
+    ``device="cpu"`` for the CPU."""
 
     def __init__(self, cfg: ProcessorConfig, h: int, w: int, channels: int,
                  time_parallel: bool = False, device=None):
-        if time_parallel:
-            raise NotImplementedError(
-                "the time-parallel clip path is not ported yet: ROADMAP.md queue 1, "
-                "'Time-parallel forms'")
         chain = MagnificationChain(device=device)
         self.cfg = cfg
         self.device = chain.device
@@ -50,18 +60,34 @@ class ClipProcessor:
         self._dyn = chain._dyn_params(cfg, self.key)
         self.state = self._step.init_state()
         self.cursor = 0
+        self.time_parallel = time_parallel
 
     def process_chunk(self, frames_u8) -> Tuple[np.ndarray, np.ndarray]:
         """frames_u8: [T, C, H, W] u8 (numpy or a tensor on any device).
         Returns (processed, original) numpy stacks."""
         frames = torch.as_tensor(frames_u8).to(self.device)
-        processed, original = [], []
-        for frame in frames:
-            self.state, out, orig = self._step.raw_fn(self.state, frame, self._dyn)
-            processed.append(out)
-            original.append(orig)
+        if self.time_parallel:
+            processed, original = self._parallel_chunk(frames)
+        else:
+            steps = []
+            for frame in frames:
+                self.state, out, orig = self._step.raw_fn(self.state, frame, self._dyn)
+                steps.append((out, orig))
+            processed, original = (torch.stack(x) for x in zip(*steps))
         self.cursor += frames.shape[0]
-        return torch.stack(processed).cpu().numpy(), torch.stack(original).cpu().numpy()
+        return processed.cpu().numpy(), original.cpu().numpy()
+
+    def _parallel_chunk(self, frames: torch.Tensor):
+        """(processed, original) of a [T, C, H, W] chunk by the time-parallel
+        form; the identity path returns the magnification input."""
+        preprocess, _, gray_stage = _build_pre_stages(self.key)
+        pre = preprocess(frames)
+        magin = gray_stage(pre)
+        par_fn = parallel_clip_fn(self.key)
+        if par_fn is None:
+            return magin, pre
+        self.state, outs = par_fn(magin.contiguous(), self._dyn, state=self.state)
+        return outs, pre
 
     # -- checkpoint / resume ---------------------------------------------------------------------
 
@@ -109,11 +135,12 @@ def export_frames(
     chunk_size: int = 32,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
+    time_parallel: bool = False,
     device=None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
     """Yield (processed, original) chunks for a [T, C, H, W] u8 clip."""
     t, c, h, w = frames_u8_tchw.shape
-    proc = ClipProcessor(cfg, h, w, c, device=device)
+    proc = ClipProcessor(cfg, h, w, c, time_parallel=time_parallel, device=device)
     start = 0
     if checkpoint_path and os.path.exists(checkpoint_path + ".npz"):
         start = proc.load_checkpoint(checkpoint_path)

@@ -4,7 +4,9 @@ The counterpart of the reference package's ``models/chain.py``
 (ChainBuilder.cpp:11-29). One step per structural configuration computes both
 the "original" tap (after the geometry, before magnification) and the
 processed frame; live use (``MagnificationChain``) and clip processing
-(``export/batch.py``) call the same step.
+(``export/batch.py``) call the same step; ``parallel_clip_fn`` gives a
+mode's time-parallel whole-clip form, which ``export/batch.py`` runs after
+the same stateless stages.
 
 Host side: structural tracking and temporal-state reset, level clamping to
 calculateMaxLevels (MagnificationProcessor.cpp:31-34), the Butterworth
@@ -19,6 +21,7 @@ f32, so a step reads nothing back from the card.
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 from typing import Callable, NamedTuple, Optional, Tuple
@@ -99,9 +102,10 @@ class ChainStep(NamedTuple):
 
 
 def _build_pre_stages(key: _StaticKey):
-    """The stateless stages (crop/downscale + grayscale) for a key. The crop
-    and downscale halves are separate so the HWC entry point can crop before
-    the planar transpose."""
+    """The stateless stages (crop/downscale + grayscale) for a key, on
+    [..., C, H, W] u8 (one frame, or a chunk of them). The crop and
+    downscale halves are separate so the HWC entry point can crop before the
+    planar transpose."""
     y0, x0, ch_crop, cw_crop, oh, ow = key.geometry
 
     def downscale(frame_u8):
@@ -115,7 +119,7 @@ def _build_pre_stages(key: _StaticKey):
     def preprocess(frame_u8):
         out = frame_u8
         if (y0, x0, ch_crop, cw_crop) != (0, 0, key.h, key.w):
-            out = out[:, y0 : y0 + ch_crop, x0 : x0 + cw_crop]
+            out = out[..., y0 : y0 + ch_crop, x0 : x0 + cw_crop]
         return downscale(out)
 
     def gray_stage(frame_u8):
@@ -180,6 +184,22 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
         return new_state, out.permute(1, 2, 0), original.permute(1, 2, 0)
 
     return ChainStep(step_hwc, step, init, key)
+
+
+def parallel_clip_fn(key: _StaticKey) -> Optional[Callable]:
+    """The mode's time-parallel whole-clip function for a static key, or None
+    for the identity path (NONE, too-small frames, phase on gray):
+    fn(frames_tchw_u8, dyn, state=state) -> (state, outs). Phase takes only
+    ``levels``, as the reference's: its time-parallel path is f32 whatever
+    the kernel flags."""
+    if key.mode is MagnificationMode.LAPLACE:
+        return functools.partial(motion_mode.process_clip_parallel, levels=key.levels)
+    if key.mode is MagnificationMode.COLOR:
+        return functools.partial(color_mode.process_clip_parallel, levels=key.levels,
+                                 framerate=key.framerate)
+    if key.mode is MagnificationMode.PHASE and key.channels >= 3:
+        return functools.partial(riesz_mode.process_clip_parallel, levels=key.levels)
+    return None
 
 
 def _f32(v: float) -> float:

@@ -18,6 +18,8 @@ bandpass, the min and max stay on the device and nothing is read back. The
 bandpass operator for (L, cutoffs, framerate) is built on the device once
 and reused (``ops/temporal.py::ideal_bandpass_operator``). ``step`` is
 functional: it returns a new state and leaves the given one untouched.
+``process_clip_parallel`` is the time-parallel form of a clip: each frame's
+window gathered from the chunk, with the same carried state.
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from live_video_magnification_tpu_torch.ops.pyramid import (
 )
 from live_video_magnification_tpu_torch.ops.temporal import (
     ideal_bandpass_apply,
+    ideal_bandpass_operator,
+    minmax_bounds,
     minmax_normalize,
     optimal_buffer_size,
 )
@@ -122,3 +126,71 @@ def process_clip(frames_u8: torch.Tensor, dyn: ColorDynParams, *, levels: int,
         state, out = step(state, frames_u8[i], dyn, levels=levels, framerate=framerate)
         outs.append(out)
     return state, torch.stack(outs)
+
+
+def process_clip_parallel(frames_u8: torch.Tensor, dyn: ColorDynParams, *, levels: int,
+                          framerate: float, state: Optional[ColorState] = None, device=None
+                          ) -> Tuple[ColorState, torch.Tensor]:
+    """The time-parallel form of ``process_clip`` (the reference's
+    ``models/color.py::process_clip_parallel``): [T, C, H, W] uint8 in,
+    (state, outs) out, the state laid out as ``step``'s.
+
+    Frame t's window is the last min(count + t + 1, N) pyramid tops, oldest
+    first: the carried window's active rows, rolled so its newest row lands
+    at index N - 1, go before the chunk's tops, and a [T, N, P] gather takes
+    each frame's rows (rows past its length L are ignored by the operator).
+    The bandpass runs once per distinct L, batched over the run of frames
+    that have it: a steady chunk (every L = N) is one product. Each frame is normalized by the min
+    and max of its active rows; only the reconstructed row min(1, L-1) is
+    scaled. The lengths and the warm-up passthrough (L < 2) are host ints,
+    as ``count`` is."""
+    t_total, channels, h, w = frames_u8.shape
+    n_win = window_size(framerate)
+    if state is None:
+        state = init_state(h, w, channels, levels, framerate, device=device)
+    dev = state.window.device
+    frames_u8 = frames_u8.to(dev)
+
+    inputs = frames_u8.to(torch.float32)  # convertTo(CV_32F): stays in [0, 255]
+    smalls = build_gauss_pyr(inputs, levels)[levels - 1]
+    flat = smalls.reshape(t_total, -1)  # [T, P]
+
+    count = min(state.count, n_win)  # active carried rows
+    carried = torch.roll(state.window.reshape(n_win, -1), n_win - count, dims=0)
+    combined = torch.cat([carried, flat])  # [N + T, P], newest carried row at N - 1
+    lengths = [min(count + i + 1, n_win) for i in range(t_total)]
+    last = n_win + t_total - 1
+    base = torch.tensor([n_win + i + 1 - n for i, n in enumerate(lengths)], device=dev)
+    idx = torch.clamp(base[:, None] + torch.arange(n_win, device=dev)[None, :], max=last)
+    windows = combined[idx]  # [T, N, P]
+
+    amp = float(np.float32(dyn.amplification))
+    rows = torch.zeros_like(flat)
+    for length in sorted(set(lengths) - {1}):
+        # the lengths never decrease: the frames of one length are a run
+        i0 = lengths.index(length)
+        i1 = i0 + lengths.count(length)
+        op = ideal_bandpass_operator(n_win, length, float(dyn.co_low), float(dyn.co_high),
+                                     float(framerate), dev)
+        filtered = torch.matmul(op, windows[i0:i1])  # [g, N, P]
+        mn, inv = minmax_bounds(filtered[:, :length], dims=(1, 2))
+        rows[i0:i1] = (filtered[:, min(1, length - 1)] - mn[:, 0]) * inv[:, 0] * amp
+        del filtered
+    del windows
+    color_img = reconstruct_from_gauss_level(rows.reshape(smalls.shape), levels, (h, w))
+    output = inputs + color_img
+    # rescale each frame by its own min and max over all channels
+    omn = output.amin(dim=(1, 2, 3), keepdim=True)
+    span = output.amax(dim=(1, 2, 3), keepdim=True) - omn
+    outs = to_u8(output, span.new_full((), 255.0) / span, -omn * 255.0 / span)
+    for i, n in enumerate(lengths):
+        if n < 2:  # warm-up: the raw frame passes through
+            outs[i] = frames_u8[i]
+
+    # the final window: the last L rows of the combined sequence, oldest first,
+    # rows past L zeroed
+    l_final = min(count + t_total, n_win)
+    fidx = torch.clamp(n_win + t_total - l_final + torch.arange(n_win, device=dev), max=last)
+    final = combined[fidx]
+    final[l_final:] = 0.0
+    return ColorState(l_final, final.reshape(state.window.shape)), outs

@@ -15,6 +15,8 @@ Python branch and costs no device-to-host sync. The per-frame parameters are
 host values taken as f32, and the ladder's gains are computed from them on
 the host in f32, as the reference computes them on its f32 scalars. ``step``
 is functional: it returns a new state and leaves the given one untouched.
+``process_clip_parallel`` is the time-parallel form of a clip: the EMAs as
+associative scans over the time axis, with the same carried state.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from live_video_magnification_tpu_torch.ops.pyramid import (
     collapse_laplace_pyr,
     pyramid_sizes,
 )
-from live_video_magnification_tpu_torch.ops.temporal import iir_filter
+from live_video_magnification_tpu_torch.ops.temporal import associative_scan, iir_filter
 
 
 class MotionDynParams(NamedTuple):
@@ -137,3 +139,72 @@ def process_clip(frames_u8: torch.Tensor, dyn: MotionDynParams, *, levels: int,
         state, out = step(state, frames_u8[i], dyn, levels=levels)
         outs.append(out)
     return state, torch.stack(outs)
+
+
+def _ema_combine(lhs, rhs):
+    """(a1, b1) then (a2, b2) of l -> a*l + b: (a1*a2, a2*b1 + b2)."""
+    (a1, b1), (a2, b2) = lhs, rhs
+    return a1 * a2, a2 * b1 + b2
+
+
+def process_clip_parallel(frames_u8: torch.Tensor, dyn: MotionDynParams, *, levels: int,
+                          state: Optional[MotionState] = None, device=None
+                          ) -> Tuple[MotionState, torch.Tensor]:
+    """The time-parallel form of ``process_clip`` (the reference's
+    ``models/motion.py::process_clip_parallel``): [T, C, H, W] uint8 in,
+    (state, outs) out, the state laid out as ``step``'s.
+
+    Each EMA l_t = (1-c) l_{t-1} + c x_t is an affine scan over the time axis
+    in O(log T) depth. Its t = 0 element folds in the seed, the frame's own
+    pyramid on the first frame of a clip and the carried EMA otherwise, with
+    the arithmetic of ``step``. The residual's EMA slots are seeded on the
+    first frame and then carried. Every other stage runs batched over T."""
+    t, c, h, w = frames_u8.shape
+    color = c >= 3
+    if state is None:
+        state = init_state(h, w, c, levels, device=device)
+    frames_u8 = frames_u8.to(state.lowpass_hi[0].device)
+    first = state.count == 0
+
+    x = u8_to_unit_f32(frames_u8)
+    inputs = bgr_to_lab(x) if color else x
+    pyrs = build_laplace_pyr(inputs, levels)  # per level [T, C, h, w]
+
+    co_low = np.float32(dyn.co_low)
+    if co_low == 0.0:
+        co_low = np.float32(0.01)
+
+    def ema_scan(xs, cutoff, carry):
+        keep, cut = float(np.float32(1.0) - cutoff), float(cutoff)
+        seed = xs[0] if first else carry
+        b = torch.cat([(keep * seed + cut * xs[0])[None], cut * xs[1:]])
+        a = torch.full((t,) + (1,) * (xs.ndim - 1), keep, dtype=xs.dtype, device=xs.device)
+        a[0] = 1.0
+        return associative_scan(_ema_combine, (a, b))[1]
+
+    motion, new_hi, new_lo = [], [], []
+    for lvl in range(levels):
+        l_hi = ema_scan(pyrs[lvl], np.float32(dyn.co_high), state.lowpass_hi[lvl])
+        l_lo = ema_scan(pyrs[lvl], co_low, state.lowpass_lo[lvl])
+        motion.append(l_hi - l_lo)
+        new_hi.append(l_hi[-1].clone())
+        new_lo.append(l_lo[-1].clone())
+        del l_hi, l_lo
+    residual = pyrs[levels]
+    motion.append(residual)  # zeroed by the ladder
+    new_hi.append(residual[0].clone() if first else state.lowpass_hi[levels])
+    new_lo.append(residual[0].clone() if first else state.lowpass_lo[levels])
+    del pyrs
+
+    gains = ladder_gains(dyn, h, w, levels)
+    amplified = [m * (0.0 if g is None else g) for m, g in zip(motion, gains)]
+    del motion
+    motion_img = collapse_laplace_pyr(amplified)
+    del amplified
+    if color:  # chroma attenuation of a and b
+        motion_img = torch.cat([motion_img[:, :1],
+                                motion_img[:, 1:] * float(np.float32(dyn.chrom_attenuation))],
+                               dim=1)
+    output = inputs + motion_img
+    outs = to_u8(lab_to_bgr(output) if color else output, 255.0, 1.0 / 255.0)
+    return MotionState(state.count + t, tuple(new_hi), tuple(new_lo)), outs

@@ -16,7 +16,9 @@ octave and every filter plane stay f32. ``count`` is a host int: the first-frame
 test then costs no device-to-host sync. The per-frame flags are host bools,
 so rebuilding the prior pyramid and zeroing the filters select tensors instead
 of masking them. ``step`` is functional: it returns a new state and leaves the
-given one untouched.
+given one untouched. ``process_clip_parallel`` is the time-parallel form of a
+clip: the phase accumulation and both DF-II filters as one associative scan
+over the time axis, with the same carried state.
 """
 
 from __future__ import annotations
@@ -48,7 +50,11 @@ from live_video_magnification_tpu_torch.ops.riesz import (
     resolve_mxu_dtype,
     riesz_level_sizes,
 )
-from live_video_magnification_tpu_torch.ops.temporal import CompExp, riesz_df2_step
+from live_video_magnification_tpu_torch.ops.temporal import (
+    CompExp,
+    df2_dual_filter_parallel,
+    riesz_df2_step,
+)
 
 Coeffs = Tuple[float, float, float]
 
@@ -301,3 +307,107 @@ def process_clip(frames_u8: torch.Tensor, dyn: RieszDynParams, *, levels: int,
                           pyr_io=pyr_io, tail_io=tail_io)
         outs.append(out)
     return state, torch.stack(outs)
+
+
+def _batched_level(levels: List[RieszLevel]) -> RieszLevel:
+    """One pyramid level of each frame, stacked over T."""
+    return RieszLevel(torch.stack([p.lowpass for p in levels]),
+                      CompExp(torch.stack([p.riesz.cos for p in levels]),
+                              torch.stack([p.riesz.sin for p in levels])))
+
+
+def process_clip_parallel(frames_u8: torch.Tensor, dyn: RieszDynParams, *, levels: int,
+                          state: Optional[RieszState] = None, device=None
+                          ) -> Tuple[RieszState, torch.Tensor]:
+    """The time-parallel form of ``process_clip`` (the reference's
+    ``models/riesz.py::process_clip_parallel``): [T, 3, H, W] uint8 in,
+    (state, outs) out, the state laid out as ``step``'s.
+
+    Lab runs batched over T, then the Riesz pyramid of each frame. The prior
+    of frame t is frame t-1's pyramid; frame 0's is the carried one, or its
+    own on the first frame of a clip. The phase difference, the normalize
+    and the amplify run batched over T; the phase accumulation and both
+    DF-II filters are one associative scan per component and level
+    (``df2_dual_filter_parallel``), its inits zeroed on the first frame.
+    Then the collapse of each frame and Lab -> BGR u8 batched.
+
+    The path is the reference's f32 one whatever the chain's flags: the
+    build and collapse at their f32 defaults (on a CUDA tensor, the stencil
+    kernels, one [H, W] plane a launch, so T launches a stencil and level)
+    and the plain tail. The cutoffs are the clip's: ``reset_filters`` is a
+    streaming event and is not read; ``force_init`` passes every frame
+    through, as the first frame of a clip is. The carried prior pyramid
+    keeps the state's dtypes (bf16 band levels under ``pyr_io``)."""
+    t, _, h, w = frames_u8.shape
+    if state is None:
+        state = init_state(h, w, levels, device=device)
+    frames_u8 = frames_u8.to(state.old[0].lowpass.device)
+    first = state.count == 0
+
+    labs = bgr_to_lab(u8_to_unit_f32(frames_u8))  # [T, 3, H, W]
+    per_frame = [build_riesz_pyramid(labs[i, 0], levels) for i in range(t)]
+    pyrs = [_batched_level([p[lvl] for p in per_frame]) for lvl in range(levels)]
+    del per_frame
+    coeffs = (dyn.b_lo, dyn.a_lo, dyn.b_hi, dyn.a_hi)
+
+    def init(x):  # the filters start from zero on the first frame
+        return torch.zeros_like(x) if first else x
+
+    new_acc: List[CompExp] = []
+    new_lo: List[RegPair] = []
+    new_hi: List[RegPair] = []
+    lowpasses: List[torch.Tensor] = []
+    for lvl in range(levels - 1):
+        cur = pyrs[lvl]
+        # prior[t] = cur[t-1]; prior[0] = the carried pyramid, or cur[0] on
+        # the first frame
+        seed = (RieszLevel(cur.lowpass[0], CompExp(cur.riesz.cos[0], cur.riesz.sin[0]))
+                if first else level_f32(state.old[lvl]))
+        shift = lambda x, s: torch.cat([s[None], x[:-1]])
+        prior = RieszLevel(shift(cur.lowpass, seed.lowpass),
+                           CompExp(shift(cur.riesz.cos, seed.riesz.cos),
+                                   shift(cur.riesz.sin, seed.riesz.sin)))
+        pr = phase_difference_and_amplitude(cur, prior)
+        del prior
+        acc, lo, hi = state.acc[lvl], state.lo[lvl], state.hi[lvl]
+
+        def dual(comp):  # one component at a time: the scan's planes are large
+            sel = lambda ce: getattr(ce, comp)
+            y_lo, y_hi, _, fin = df2_dual_filter_parallel(
+                sel(pr.phase_diff), *coeffs, acc_init=init(sel(acc)),
+                lo_init=(init(sel(lo.reg0)), init(sel(lo.reg1))),
+                hi_init=(init(sel(hi.reg0)), init(sel(hi.reg1))))
+            return y_lo, y_hi, fin
+
+        (lo_c, hi_c, fc), (lo_s, hi_s, fs) = dual("cos"), dual("sin")
+        new_acc.append(CompExp(fc[0], fs[0]))
+        new_lo.append(RegPair(CompExp(fc[1], fs[1]), CompExp(fc[2], fs[2])))
+        new_hi.append(RegPair(CompExp(fc[3], fs[3]), CompExp(fc[4], fs[4])))
+        normalized = normalize_phase(CompExp(hi_c, hi_s), CompExp(lo_c, lo_s), pr.amplitude,
+                                     pr.amplitude_blurred)
+        del lo_c, hi_c, lo_s, hi_s, pr
+        lowpasses.append(amplify_level(cur, normalized, dyn.amplification, dyn.threshold))
+        del normalized
+    lowpasses.append(pyrs[levels - 1].lowpass)  # untouched residual octave
+
+    # "*st.old = *st.cur": the last frame's pyramid, in the carried dtypes
+    new_old = tuple(
+        RieszLevel(p.lowpass[-1].to(o.lowpass.dtype, copy=True),
+                   CompExp(p.riesz.cos[-1].to(o.riesz.cos.dtype, copy=True),
+                           p.riesz.sin[-1].to(o.riesz.sin.dtype, copy=True)))
+        for p, o in zip(pyrs, state.old))
+    del pyrs
+    magnified = torch.stack([collapse_riesz_pyramid([lp[i] for lp in lowpasses])
+                             for i in range(t)])
+    del lowpasses
+    merged = torch.stack([magnified, labs[:, 1], labs[:, 2]], dim=1)
+    outs = to_u8(lab_to_bgr(merged), 255.0, 1.0 / 255.0)
+    # the first frame of a clip, and every frame under degenerate
+    # coefficients, pass the raw input through (MagnifyCore.hpp:226-239)
+    if dyn.force_init:
+        outs = frames_u8.clone()
+    elif first:
+        outs[0] = frames_u8[0]
+    new_state = RieszState(state.count + t, new_old, tuple(new_acc), tuple(new_lo),
+                           tuple(new_hi))
+    return new_state, outs

@@ -11,7 +11,8 @@ The counterpart of the reference package's ``ops/color.py``:
     saturate; alpha and beta may be 0-d tensors (colour mode rescales by the
     output's own min and max without reading them back to the host).
 
-Layout is planar [C, H, W] f32 in BGR order. PyTorch has no cube root, so the
+Layout is planar [..., C, H, W] f32 in BGR order: leading dims (a clip's
+time axis) pass through. PyTorch has no cube root, so the
 CIE f(t) uses ``t ** (1/3)`` on t > 0.008856: a few f32 ulps from a true cube
 root, below 1e-4 in L for L in [0, 100] (tests hold Lab to 2e-4 of the
 reference package).
@@ -47,8 +48,8 @@ def _cie_f(t: torch.Tensor) -> torch.Tensor:
 
 
 def bgr_to_lab(bgr: torch.Tensor) -> torch.Tensor:
-    """[3, H, W] BGR float32 in [0,1] -> [3, H, W] Lab (L 0..100, a/b signed)."""
-    b, g, r = bgr[0], bgr[1], bgr[2]
+    """[..., 3, H, W] BGR float32 in [0,1] -> [..., 3, H, W] Lab (L 0..100, a/b signed)."""
+    b, g, r = bgr.unbind(-3)
     r = _srgb_inverse_gamma(r)
     g = _srgb_inverse_gamma(g)
     b = _srgb_inverse_gamma(b)
@@ -59,12 +60,12 @@ def bgr_to_lab(bgr: torch.Tensor) -> torch.Tensor:
     l_chan = torch.where(y > _T0, 116.0 * fy - 16.0, 903.3 * y)
     a_chan = 500.0 * (fx - fy)
     b_chan = 200.0 * (fy - fz)
-    return torch.stack([l_chan, a_chan, b_chan])
+    return torch.stack([l_chan, a_chan, b_chan], dim=-3)
 
 
 def lab_to_bgr(lab: torch.Tensor) -> torch.Tensor:
-    """[3, H, W] Lab float32 -> [3, H, W] BGR (unclamped, like OpenCV's f32 path)."""
-    l_chan, a_chan, b_chan = lab[0], lab[1], lab[2]
+    """[..., 3, H, W] Lab float32 -> [..., 3, H, W] BGR (unclamped, like OpenCV's f32 path)."""
+    l_chan, a_chan, b_chan = lab.unbind(-3)
     fy = (l_chan + 16.0) / 116.0
     y = torch.where(l_chan > _L_THRESH, fy * fy * fy, l_chan / 903.3)
     fy_eff = torch.where(l_chan > _L_THRESH, fy,
@@ -78,18 +79,16 @@ def lab_to_bgr(lab: torch.Tensor) -> torch.Tensor:
     g = -0.969256 * x + 1.875991 * y + 0.041556 * z
     b = 0.055648 * x - 0.204043 * y + 1.057311 * z
     return torch.stack(
-        [_srgb_forward_gamma(b), _srgb_forward_gamma(g), _srgb_forward_gamma(r)]
+        [_srgb_forward_gamma(b), _srgb_forward_gamma(g), _srgb_forward_gamma(r)], dim=-3
     )
 
 
 def bgr_to_gray_u8(bgr_u8: torch.Tensor) -> torch.Tensor:
-    """[3, H, W] uint8 BGR -> [1, H, W] uint8 gray, bit-exact with OpenCV CV_8U:
-    (R*9798 + G*19235 + B*3735 + (1<<14)) >> 15."""
-    b = bgr_u8[0].to(torch.int32)
-    g = bgr_u8[1].to(torch.int32)
-    r = bgr_u8[2].to(torch.int32)
+    """[..., 3, H, W] uint8 BGR -> [..., 1, H, W] uint8 gray, bit-exact with
+    OpenCV CV_8U: (R*9798 + G*19235 + B*3735 + (1<<14)) >> 15."""
+    b, g, r = (c.to(torch.int32) for c in bgr_u8.unbind(-3))
     y = (r * 9798 + g * 19235 + b * 3735 + (1 << 14)) >> 15
-    return y.to(torch.uint8)[None]
+    return y.to(torch.uint8).unsqueeze(-3)
 
 
 def to_u8(x: torch.Tensor, alpha: float | torch.Tensor = 1.0,

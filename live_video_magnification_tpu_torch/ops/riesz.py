@@ -116,6 +116,31 @@ def hybrid_bf16(level: int, mxu_dtype: str) -> Tuple[bool, bool]:
     return mxu_dtype == "bf16", mxu_dtype == "bf16"
 
 
+def fused_level(m: int, build: str = "auto") -> bool:
+    """Whether a band level of short side ``m`` is built in one pass
+    (riesz_build_level) rather than by conv9, band5 and lp9_decimate."""
+    return m >= MIN_FUSED_SIDE and (build == "fused" or m < MIN_MXU_SIDE)
+
+
+def stencil_launches(h: int, w: int, levels: int, build: str = "auto") -> dict:
+    """Stencil launches of one (h, w) frame's build and collapse, by entry
+    point of ops/hopper/stencils.py (each launches once a call on a CUDA
+    tensor): per band level the one-pass build or the three stencils, and
+    lp9_inject + conv9 in the collapse."""
+    resolve_build(build)
+    want = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0,
+            "riesz_build_level": 0}
+    for lh, lw in riesz_level_sizes(h, w, levels)[:-1]:
+        if fused_level(min(lh, lw), build):
+            want["riesz_build_level"] += 1
+        else:
+            for k in ("conv9", "band5", "lp9_decimate"):
+                want[k] += 1
+        want["lp9_inject"] += 1
+        want["conv9"] += 1
+    return want
+
+
 def build_riesz_pyramid(frame: torch.Tensor, levels: int, *, build: str = "auto",
                         mxu_dtype: str = "f32", pyr_io: str = "f32") -> List[RieszLevel]:
     """buildPyramid (:215-238): levels-1 band levels + the untouched final octave.
@@ -139,7 +164,7 @@ def build_riesz_pyramid(frame: torch.Tensor, levels: int, *, build: str = "auto"
     octave = frame
     for lvl in range(levels - 1):
         m = min(octave.shape)
-        if m >= MIN_FUSED_SIDE and (build == "fused" or m < MIN_MXU_SIDE):
+        if fused_level(m, build):
             hp, r, i, sub = riesz_build_level(octave, out_dtype=pyr_io)
         elif m >= MIN_MXU_SIDE:
             conv_bf16, band_bf16 = hybrid_bf16(lvl, mxu_dtype)

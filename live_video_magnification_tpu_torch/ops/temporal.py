@@ -15,14 +15,17 @@ The counterpart of the reference package's ``ops/temporal.py``
   * butterworth / butterworth_bandpass_coeffs: scipy-compatible digital
     Butterworth design, on the host in float64 (:268-297, :324-327);
   * CompExp and riesz_df2_step: the Direct-Form-II step with quaternionic
-    phase accumulation (:340-351).
+    phase accumulation (:340-351);
+  * associative_scan, df2_filter_parallel and df2_dual_filter_parallel: the
+    time-parallel forms (the reference's :211-412), log-depth scans over the
+    time axis that combine in the reference's tree.
 """
 
 from __future__ import annotations
 
 import math
 from functools import lru_cache
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -141,11 +144,21 @@ def minmax_normalize(x: torch.Tensor, valid_rows: Optional[int] = None) -> torch
     ``valid_mask``). OpenCV guards the constant input: scale = (max-min >
     DBL_EPSILON) ? 1/(max-min) : 0, so a constant array maps to zeros, not
     NaN (core/src/norm.cpp normalize()). The min and max stay on the device."""
-    valid = x if valid_rows is None else x[:valid_rows]
-    mn, mx = valid.min(), valid.max()
-    delta = mx - mn
-    inv = torch.where(delta > _DBL_EPSILON, 1.0 / delta, 0.0)
+    mn, inv = minmax_bounds(x if valid_rows is None else x[:valid_rows])
     return (x - mn) * inv
+
+
+def minmax_bounds(valid: torch.Tensor, dims: Optional[Tuple[int, ...]] = None):
+    """(min, scale) of cv::normalize NORM_MINMAX over ``valid``: scale is
+    1/(max-min), or 0 where max-min <= DBL_EPSILON. Over all of ``valid``
+    (0-d results), or over ``dims`` (kept as dims of size 1: one pair per
+    index of the others)."""
+    if dims is None:
+        mn, mx = valid.min(), valid.max()
+    else:
+        mn, mx = valid.amin(dim=dims, keepdim=True), valid.amax(dim=dims, keepdim=True)
+    delta = mx - mn
+    return mn, torch.where(delta > _DBL_EPSILON, 1.0 / delta, 0.0)
 
 
 def butterworth(order: int, wn: float) -> Tuple[np.ndarray, np.ndarray]:
@@ -207,3 +220,190 @@ def riesz_df2_step(phase_acc: CompExp, reg0: CompExp, reg1: CompExp,
     new_reg0 = phase.scale(b[1]) + reg1 - result.scale(a[1])
     new_reg1 = phase.scale(b[2]) - result.scale(a[2])
     return result, phase, new_reg0, new_reg1
+
+
+# --- time-parallel forms ------------------------------------------------------------------------
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """[e0, o0, e1, o1, ...] along dim 0 (len(even) - len(odd) is 0 or 1)."""
+    out = even.new_empty((even.shape[0] + odd.shape[0],) + tuple(even.shape[1:]))
+    out[0::2] = even
+    out[1::2] = odd
+    return out
+
+
+def associative_scan(combine: Callable[[Sequence[torch.Tensor], Sequence[torch.Tensor]],
+                                       Sequence[torch.Tensor]],
+                     elems: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Inclusive scan of ``combine`` over dim 0 of every tensor in ``elems``,
+    in O(log T) depth: element k of the result combines elements 0..k.
+
+    The recursion of the reference's ``jax.lax.associative_scan``
+    (jax/_src/lax/control_flow/loops.py, JAX 0.9.0): combine the adjacent
+    pairs (elems[0:-1:2], elems[1::2]), scan those, combine the odd results
+    with elems[2::2], interleave. So the port combines in the same tree and
+    differs from the reference only in each element's rounding.
+    ``combine(lhs, rhs)`` takes and returns sequences shaped like ``elems``,
+    lhs the earlier; it must broadcast, as a [T, 1, 1] coefficient stays one
+    scalar a step against [T, H, W] planes."""
+    elems = list(elems)
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = combine([e[0:-1:2] for e in elems], [e[1::2] for e in elems])
+    odd = associative_scan(combine, reduced)
+    rest = [e[2::2] for e in elems]
+    even = combine([e[:-1] for e in odd] if n % 2 == 0 else odd, rest)
+    even = [torch.cat([e[:1], r]) for e, r in zip(elems, even)]
+    return [_interleave(e, o) for e, o in zip(even, odd)]
+
+
+def _f32s(*values) -> Tuple[np.float32, ...]:
+    return tuple(np.float32(v) for v in values)
+
+
+def _scalars(t: int, ndim: int, like: torch.Tensor, value: float, first=None) -> torch.Tensor:
+    """A [t, 1, ...] column of ``value`` (``first`` at t = 0 where given)."""
+    col = torch.full((t,) + (1,) * (ndim - 1), float(value), dtype=like.dtype,
+                     device=like.device)
+    if first is not None:
+        col[0] = float(first)
+    return col
+
+
+def _shifted(v: torch.Tensor, init: Optional[torch.Tensor]) -> torch.Tensor:
+    """v one step later along dim 0: ``init`` (zeros if None) at t = 0."""
+    first = (torch.zeros_like(v[:1]) if init is None
+             else torch.broadcast_to(init, v[:1].shape).to(v.dtype))
+    return torch.cat([first, v[:-1]])
+
+
+def df2_filter_parallel(xs: torch.Tensor, b, a, reg0_init=None, reg1_init=None):
+    """Whole-sequence DF-II filter as an associative scan over dim 0 (the
+    reference's ``ops/temporal.py::df2_filter_parallel``).
+
+    The same outputs as iterating the DF-II filter of ``riesz_df2_step`` over
+    time, without the phase accumulation: the register recurrence
+
+        reg0[t] = (b1 - a1*b0)*x[t] - a1*reg0[t-1] + reg1[t-1]
+        reg1[t] = (b2 - a2*b0)*x[t] - a2*reg0[t-1]
+        y[t]    =  b0*x[t] + reg0[t-1]
+
+    is affine in the register pair. ``b`` and ``a`` are three host values
+    each (a[0] == 1), taken as f32. ``reg0_init`` / ``reg1_init``
+    (broadcastable to xs[0]) continue a chunk; one of them alone makes the
+    other zero. Returns (y [T, ...], reg0 [T, ...], reg1 [T, ...])."""
+    if (reg0_init is None) != (reg1_init is None):
+        if reg0_init is None:
+            reg0_init = torch.zeros_like(xs[0])
+        else:
+            reg1_init = torch.zeros_like(xs[0])
+    b0, b1, b2 = _f32s(*b)
+    _, a1, a2 = _f32s(*a)
+    c1 = float(b1 - a1 * b0) * xs
+    c2 = float(b2 - a2 * b0) * xs
+    warm = reg0_init is not None
+    if warm:  # fold the init into the t = 0 offset: s[0] = A s_init + c[0]
+        c1[0] += float(-a1) * reg0_init + reg1_init
+        c2[0] += float(-a2) * reg0_init
+    t, nd = xs.shape[0], xs.ndim
+    # t = 0's transition is then the identity, so A is applied once a step
+    m = (_scalars(t, nd, xs, -a1, 1.0 if warm else None),
+         _scalars(t, nd, xs, 1.0, 0.0 if warm else None),
+         _scalars(t, nd, xs, -a2, 0.0 if warm else None),
+         _scalars(t, nd, xs, 0.0, 1.0 if warm else None))
+
+    def combine(lhs, rhs):
+        l11, l12, l21, l22, lv1, lv2 = lhs
+        r11, r12, r21, r22, rv1, rv2 = rhs
+        return (r11 * l11 + r12 * l21, r11 * l12 + r12 * l22,
+                r21 * l11 + r22 * l21, r21 * l12 + r22 * l22,
+                r11 * lv1 + r12 * lv2 + rv1, r21 * lv1 + r22 * lv2 + rv2)
+
+    scanned = associative_scan(combine, m + (c1, c2))
+    reg0, reg1 = scanned[4], scanned[5]
+    y = float(b0) * xs + _shifted(reg0, reg0_init)
+    return y, reg0, reg1
+
+
+def df2_dual_filter_parallel(diff: torch.Tensor, b_lo, a_lo, b_hi, a_hi,
+                             acc_init=None, lo_init=None, hi_init=None):
+    """Phase accumulation and both Butterworth DF-II filters as one associative
+    scan over dim 0 (the reference's ``ops/temporal.py::df2_dual_filter_parallel``).
+
+    The lo and hi filters of ``riesz_df2_step`` read the same accumulated
+    phase, so the recurrence
+
+        acc[t]  = acc[t-1] + d[t]
+        r0x[t]  = kx1*acc[t] - ax1*r0x[t-1] + r1x[t-1]     kx1 = bx1 - ax1*bx0
+        r1x[t]  = kx2*acc[t] - ax2*r0x[t-1]                kx2 = bx2 - ax2*bx0
+        yx[t]   = bx0*acc[t] + r0x[t-1]                    (x in {lo, hi})
+
+    is affine in s = (acc, r0lo, r1lo, r0hi, r1hi) with a constant block
+    lower-triangular transition: 12 scalar entries, carried as [T, 1, ...]
+    columns, and 5 planes of offsets. The coefficients are host values taken
+    as f32, and kx1, kx2 are computed in f32, as the reference computes them
+    from its f32 arrays.
+
+    diff: [T, ...]. The inits (broadcastable to diff[0]; pass all or none)
+    are folded into the t = 0 offsets, with an identity transition there.
+    Returns (y_lo [T, ...], y_hi, acc [T, ...], finals) with finals =
+    (acc, r0lo, r1lo, r0hi, r1hi) after the last step."""
+    t, nd = diff.shape[0], diff.ndim
+    blo0, blo1, blo2 = _f32s(*b_lo)
+    bhi0, bhi1, bhi2 = _f32s(*b_hi)
+    _, alo1, alo2 = _f32s(*a_lo)
+    _, ahi1, ahi2 = _f32s(*a_hi)
+    kl1, kl2 = float(blo1 - alo1 * blo0), float(blo2 - alo2 * blo0)
+    kh1, kh2 = float(bhi1 - ahi1 * bhi0), float(bhi2 - ahi2 * bhi0)
+
+    warm = acc_init is not None
+    c_acc = diff.clone() if warm else diff
+    c_l0, c_l1 = kl1 * diff, kl2 * diff
+    c_h0, c_h1 = kh1 * diff, kh2 * diff
+    if warm:  # fold A @ s_init into c[0]; t = 0's transition becomes the identity
+        s0 = [torch.broadcast_to(x, diff.shape[1:]).to(diff.dtype)
+              for x in (acc_init, *lo_init, *hi_init)]
+        c_acc[0] += s0[0]
+        c_l0[0] += kl1 * s0[0] - float(alo1) * s0[1] + s0[2]
+        c_l1[0] += kl2 * s0[0] - float(alo2) * s0[1]
+        c_h0[0] += kh1 * s0[0] - float(ahi1) * s0[3] + s0[4]
+        c_h1[0] += kh2 * s0[0] - float(ahi2) * s0[3]
+
+    def col(value, identity):
+        return _scalars(t, nd, diff, value, identity if warm else None)
+
+    # per block (lo, hi): first-column entries x0, x1_0 acting on acc, and the
+    # 2x2 block [[x11, x12], [x21, x22]] acting on (r0, r1)
+    lo = (col(kl1, 0.0), col(kl2, 0.0), col(-alo1, 1.0), col(1.0, 0.0),
+          col(-alo2, 0.0), col(0.0, 1.0))
+    hi = (col(kh1, 0.0), col(kh2, 0.0), col(-ahi1, 1.0), col(1.0, 0.0),
+          col(-ahi2, 0.0), col(0.0, 1.0))
+
+    def combine(lhs, rhs):
+        (ll0, ll10, ll11, ll12, ll21, ll22, lh0, lh10, lh11, lh12, lh21, lh22,
+         lca, lcl0, lcl1, lch0, lch1) = lhs
+        (rl0, rl10, rl11, rl12, rl21, rl22, rh0, rh10, rh11, rh12, rh21, rh22,
+         rca, rcl0, rcl1, rch0, rch1) = rhs
+        # new = R @ L, both block lower-triangular with an identity acc row
+        return (rl0 + rl11 * ll0 + rl12 * ll10,
+                rl10 + rl21 * ll0 + rl22 * ll10,
+                rl11 * ll11 + rl12 * ll21, rl11 * ll12 + rl12 * ll22,
+                rl21 * ll11 + rl22 * ll21, rl21 * ll12 + rl22 * ll22,
+                rh0 + rh11 * lh0 + rh12 * lh10,
+                rh10 + rh21 * lh0 + rh22 * lh10,
+                rh11 * lh11 + rh12 * lh21, rh11 * lh12 + rh12 * lh22,
+                rh21 * lh11 + rh22 * lh21, rh21 * lh12 + rh22 * lh22,
+                lca + rca,
+                rl0 * lca + rl11 * lcl0 + rl12 * lcl1 + rcl0,
+                rl10 * lca + rl21 * lcl0 + rl22 * lcl1 + rcl1,
+                rh0 * lca + rh11 * lch0 + rh12 * lch1 + rch0,
+                rh10 * lca + rh21 * lch0 + rh22 * lch1 + rch1)
+
+    scanned = associative_scan(combine, lo + hi + (c_acc, c_l0, c_l1, c_h0, c_h1))
+    del c_acc, c_l0, c_l1, c_h0, c_h1
+    acc, r0l, r1l, r0h, r1h = scanned[12:]
+    y_lo = float(blo0) * acc + _shifted(r0l, lo_init[0] if warm else None)
+    y_hi = float(bhi0) * acc + _shifted(r0h, hi_init[0] if warm else None)
+    finals = tuple(v[-1].clone() for v in (acc, r0l, r1l, r0h, r1h))
+    return y_lo, y_hi, acc, finals

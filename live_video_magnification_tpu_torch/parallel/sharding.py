@@ -41,13 +41,13 @@ def build_sharded_step(
             return build_sharded_riesz_step(mesh, batch, h, w, levels)
         raise NotImplementedError(
             f"W={w} does not lane-shard {mesh.shape['tile']}-way: the GSPMD row-sharded "
-            "fallback is not ported yet (ROADMAP.md, queue 1 item 10)")
+            "fallback is not ported yet (ROADMAP.md, queue 1 item 2)")
     if mode is MagnificationMode.LAPLACE:
         raise NotImplementedError(
-            "the sharded motion (LAPLACE) step is not ported yet: motion mode itself "
-            "comes first (ROADMAP.md, queue 1 items 7 and 10)")
+            "the sharded motion (LAPLACE) step is not ported yet (ROADMAP.md, queue 1 "
+            "item 2)")
     if mode is MagnificationMode.COLOR:
         raise NotImplementedError(
-            "the sharded colour (COLOR) step is not ported yet: colour mode itself "
-            "comes first (ROADMAP.md, queue 1 items 7 and 10)")
+            "the sharded colour (COLOR) step is not ported yet (ROADMAP.md, queue 1 "
+            "item 2)")
     raise ValueError(f"no sharded step for mode {mode}")

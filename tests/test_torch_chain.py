@@ -255,13 +255,19 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_modes_and_paths_raise():
-    """What is still unported raises (the time-parallel clip path); frames too
-    small to magnify are the identity in every mode, as in the reference.
-    LAPLACE and COLOR are ported: tests/test_torch_modes.py holds them."""
+    """What is still unported raises (the sharded motion step, ROADMAP.md
+    queue 1 item 2); frames too small to magnify are the identity in every
+    mode, as in the reference, through the chain and through the
+    time-parallel clip path (tests/test_torch_time_parallel.py holds that
+    path; LAPLACE and COLOR are in tests/test_torch_modes.py)."""
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+    from live_video_magnification_tpu_torch.parallel.sharding import build_sharded_step
+
     tc = TChain(device="cpu")
     _, tcfg = _cfg_pair()
+    mesh = make_mesh((1, 2), ("batch", "tile"), devices=["cpu"] * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ClipProcessor(tcfg, H, W, 3, time_parallel=True, device="cpu")
+        build_sharded_step(mesh, tparams.MagnificationMode.LAPLACE, 1, H, W, 3)
     tiny = _clip()[0][:5, :9]
     for mode in tparams.MagnificationMode:
         cfg = dataclasses.replace(tcfg, magnification=dataclasses.replace(
@@ -270,3 +276,8 @@ def test_unported_modes_and_paths_raise():
         np.testing.assert_array_equal(out.numpy(), tiny)
         np.testing.assert_array_equal(orig.numpy(), tiny)
         assert tc._key.mode is tparams.MagnificationMode.NONE
+        chunk = np.ascontiguousarray(tiny.transpose(2, 0, 1))[None]
+        proc = ClipProcessor(cfg, 5, 9, 3, time_parallel=True, device="cpu")
+        processed, original = proc.process_chunk(chunk)
+        np.testing.assert_array_equal(processed, chunk)
+        np.testing.assert_array_equal(original, chunk)

@@ -136,13 +136,33 @@ def test_magnify_defaults_to_laplace_and_fails_without_a_card(clip_path, tmp_pat
     assert repr(cfg) == repr(jcfg)
 
 
-@pytest.mark.parametrize("flag", ["--time-parallel", "--distributed"])
+@pytest.mark.parametrize("flag", ["--distributed"])
 def test_unported_paths_fail_with_the_roadmap_message(flag, clip_path, tmp_path, capsys):
     out = str(tmp_path / "o.avi")
     assert tcli.main(["magnify", clip_path, out, "--device", "cpu", flag]) == 2
     err = capsys.readouterr().err
-    assert "not ported yet" in err and "ROADMAP.md" in err and flag in err
+    assert "not ported yet" in err and "ROADMAP.md (queue 1 item 2)" in err and flag in err
     assert not os.path.exists(out)
+
+
+@pytest.mark.parametrize("mode", ["laplace", "color", "phase"])
+def test_magnify_time_parallel_matches_reference_cli(mode, clip_path, tmp_path):
+    """--time-parallel against the reference CLI's --time-parallel on the same
+    clip, and against the port's own sequential run (two chunks of 7)."""
+    ref, got, seq = (str(tmp_path / f"{n}.avi") for n in ("ref", "got", "seq"))
+    args = [clip_path, "--mode", mode, "--chunk", "7"]
+    assert jcli.main(["magnify", args[0], ref] + args[1:] + ["--time-parallel"]) == 0
+    assert tcli.main(["magnify", args[0], got] + args[1:]
+                     + ["--time-parallel", "--device", "cpu"]) == 0
+    assert tcli.main(["magnify", args[0], seq] + args[1:] + ["--device", "cpu"]) == 0
+    a, b, c = _read(got), _read(ref), _read(seq)
+    assert a.shape == b.shape == c.shape == (14, 64, 80, 3)
+    dbs = [psnr_u8(x, y) for x, y in zip(a, b)]
+    seq_dbs = [psnr_u8(x, y) for x, y in zip(a, c)]
+    print(f"{mode} --time-parallel: min {min(dbs):.2f} dB against the reference CLI, "
+          f"{min(seq_dbs):.2f} dB against the sequential run")
+    assert min(dbs) >= 45.0, dbs
+    assert min(seq_dbs) >= 45.0, seq_dbs
 
 
 def test_magnify_fast_sets_the_four_flags(clip_path, tmp_path, no_fast_flags, monkeypatch):

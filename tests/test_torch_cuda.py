@@ -1,8 +1,9 @@
 """Card-only tests of the port: the CUDA stencil, build and tail kernels
 (with their bf16 arms) against their plain versions, the phase step
 (under each tail configuration, each build and the fast flags) and chain on
-the card against the CPU, and the motion and colour modes (step, chain and
-ClipProcessor) on the card against the CPU.
+the card against the CPU, the motion and colour modes (step, chain and
+ClipProcessor) on the card against the CPU, and the time-parallel clip path
+of all three modes against the sequential one and the CPU.
 
 Marked ``cuda``; each test decides inside itself whether a card exists and
 skips otherwise. They import neither JAX nor cv2, so they run where only torch
@@ -690,6 +691,51 @@ def test_clip_processor_on_the_card_equals_the_chain_and_resumes(cuda, mode, tmp
     assert resumed.load_checkpoint(str(tmp_path / "ck")) == 7
     b, _ = resumed.process_chunk(tchw[7:])
     np.testing.assert_array_equal(np.concatenate([a, b]), processed)
+
+
+@pytest.mark.parametrize("mode,levels,fps,t", [("phase", 4, 30.0, 8), ("laplace", 4, 30.0, 8),
+                                               ("color", 3, 8.0, 20)])
+def test_time_parallel_on_the_card_matches_sequential_and_the_cpu(cuda, mode, levels, fps, t):
+    """ClipProcessor(time_parallel=True) at 136x240 in two chunks: against the
+    sequential ClipProcessor on the card (motion, colour within 1 LSB; phase
+    >= 40 dB) and against its own run on the CPU (phase >= 40 dB, motion
+    within 1 LSB, colour >= 45 dB); phase launches its f32 stencils once a
+    frame and level (``ops/riesz.py::stencil_launches``) and no tail kernel,
+    motion and colour none."""
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+    from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w = 136, 240
+    cfg = _mode_cfg(mode, levels, fps)
+    tchw = np.ascontiguousarray(moving_clip(t, h, w, seed=10).transpose(0, 3, 1, 2))
+    half = t // 2
+    runs = {}
+    for name, dev, parallel in (("par", cuda, True), ("seq", cuda, False),
+                                ("cpu", "cpu", True)):
+        proc = ClipProcessor(cfg, h, w, 3, time_parallel=parallel, device=dev)
+        before = dict(stencils.LAUNCHES), dict(tail.LAUNCHES)
+        outs = [proc.process_chunk(tchw[:half])[0], proc.process_chunk(tchw[half:])[0]]
+        launched = ({k: v - before[0][k] for k, v in stencils.LAUNCHES.items()},
+                    {k: v - before[1][k] for k, v in tail.LAUNCHES.items()})
+        runs[name] = np.concatenate(outs)
+        if name == "par":
+            want = ({k: v * t for k, v in stencil_launches(h, w, levels).items()}
+                    if mode == "phase" else {k: 0 for k in stencils.LAUNCHES})
+            assert launched == (want, {k: 0 for k in tail.LAUNCHES}), launched
+    for other in ("seq", "cpu"):
+        a, b = runs["par"], runs[other]
+        lsb = int(np.abs(a.astype(np.int16) - b.astype(np.int16)).max())
+        dbs = [psnr_u8(x, y) for x, y in zip(a, b)]
+        if mode == "phase":
+            assert min(dbs) >= 40.0, f"against {other}: {dbs} dB, max {lsb} LSB"
+        elif mode == "color" and other == "cpu":
+            assert min(dbs) >= 45.0, f"against {other}: {dbs} dB"
+            np.testing.assert_array_equal(a[0], b[0])
+        else:
+            assert lsb <= 1, f"against {other}: max {lsb} LSB"
 
 
 # ---------------------------------------------------------------- K10 and the sharded step
