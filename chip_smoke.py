@@ -93,7 +93,23 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      >= 40 dB a frame, with its max LSB and share of pixels over 1 LSB), and
      two chunks against one within the same bars; then at 1080x1920 on the
      card against the port's CPU path (phase and motion 4 frames, colour 20
-     at 8 fps so its window rolls, each in two chunks).
+     at 8 fps so its window rolls, each in two chunks);
+ 11. the time mesh (``parallel/batch_export.py::DistributedClipExporter``,
+     the boundary step of ``parallel/time_shard.py``): the boundary step
+     alone by events; then at 2160x3840 in all three modes one chunk of
+     TP_CHUNK host frames on TM_SHARDS virtual shards of the card, with and
+     without the original stack's readback, beside the unsharded
+     time-parallel path on the same frames, in two passes (the second
+     reversed): ms/frame, peak memory, launches (phase: 25 f32 stencils a
+     frame summed over the shards, no tail or halo kernel; motion and
+     colour none of K1-K10), frames against the unsharded path (phase
+     >= 40 dB, max LSB and pixels over 1 LSB; motion and colour within
+     1 LSB), and in the first pass a partial tail of TM_TAIL frames run
+     unsharded; the same over the real cards when there are two or more,
+     with its ms/frame over the virtual shards'; then two ranks started by
+     this script (``--rank``) at 1080x1920 phase, 4 shards each (NCCL on
+     two cards where there are two, else gloo on one), their frames bit
+     for bit those of one process's 8 virtual shards.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -1379,6 +1395,346 @@ def slice_card_vs_cpu_time_parallel(torch, dev, st, tl, hl, h=1080, w=1920):
         del gpu, cpu
 
 
+TM_SHARDS = 4  # virtual shards of one card on the 4K time mesh
+TM_TAIL = 2    # frames after the chunk: a partial chunk, run unsharded
+
+
+def tm_boundary_ms(torch, dev, t, h, w, shards):
+    """Device ms per chunk of the time mesh's boundary step alone, by CUDA
+    events on standard-normal inputs at the 4K cells' shapes: what splitting
+    a chunk of ``t`` frames into ``shards`` adds to the time-parallel path.
+    Phase (levels 6): per band level and component, the fold of the shard
+    totals (shards - 1 carries of a last row of the 5 states) and the
+    carry-in of every later shard's t/shards rows of both DF-II outputs;
+    motion (levels 4): per level and EMA, the same for the EMA's 3-channel
+    planes; colour (levels 3): the concatenation of the shards' pyramid
+    tops. Returns {mode: ms per chunk}."""
+    from live_video_magnification_tpu_torch.ops.pyramid import pyramid_sizes
+    from live_video_magnification_tpu_torch.ops.riesz import riesz_level_sizes
+    from live_video_magnification_tpu_torch.ops.temporal import (
+        df2_dual_carry,
+        df2_dual_carry_outputs,
+        ema_carry,
+    )
+
+    per = t // shards
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    normal = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    coeffs = [tuple(float(x) for x in c) for c in tail_coeffs()]
+    out = {"phase": 0.0, "laplace": 0.0}
+    for lh, lw in riesz_level_sizes(h, w, 6)[:-1]:
+        ys, s_in = [normal(per, lh, lw) for _ in range(2)], [normal(lh, lw) for _ in range(5)]
+
+        def phase_boundary():
+            s = s_in
+            for _ in range(shards - 1):
+                s = df2_dual_carry(s_in, s, *coeffs, at=per - 1)
+            for _ in range(shards - 1):
+                df2_dual_carry_outputs(*ys, s_in, *coeffs)
+
+        out["phase"] += 2 * cuda_ms(phase_boundary, 3, 1)
+        del ys, s_in
+    for lh, lw in [(h, w)] + pyramid_sizes(h, w, 4)[:3]:
+        local, carry = normal(per, 3, lh, lw), normal(3, lh, lw)
+
+        def motion_boundary():
+            s = carry
+            for _ in range(shards - 1):
+                s = ema_carry(local[-1], s, 0.5, at=per - 1)
+            for _ in range(shards - 1):
+                ema_carry(local, carry, 0.5)
+
+        out["laplace"] += 2 * cuda_ms(motion_boundary, 3, 1)
+        del local, carry
+    th, tw = pyramid_sizes(h, w, 3)[2]
+    tops = [normal(per, 3 * th * tw) for _ in range(shards)]
+    out["color"] = cuda_ms(lambda: torch.cat(tops), 3, 1)
+    torch.cuda.empty_cache()
+    return out
+
+
+def tm_exporter(cfg, h, w, devices):
+    """DistributedClipExporter on a ("time",) mesh of ``devices``."""
+    from live_video_magnification_tpu_torch.parallel.batch_export import (
+        DistributedClipExporter,
+    )
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+
+    return DistributedClipExporter(cfg, h, w, 3, mesh=make_mesh((len(devices),), ("time",),
+                                                               devices))
+
+
+def run_time_mesh(torch, devices, cfg, chunks, modules, fetch_original=True):
+    """The host chunks through DistributedClipExporter on a ("time",) mesh of
+    ``devices`` (one process: every shard's rows), counts reset just before.
+    Returns (outputs of each chunk, seconds of each chunk, the first chunk's
+    launch counts, peak memory over the devices, the exporter)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    exp = tm_exporter(cfg, *chunks[0].shape[2:], devices)
+    cards = list(dict.fromkeys(devices))
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+    reset_counts(*modules)
+    outs, secs, launched = [], [], None
+    for chunk in chunks:
+        t0 = time.perf_counter()
+        outs.append(exp.process_chunk(chunk, len(chunk), fetch_original=fetch_original)[0])
+        secs.append(time.perf_counter() - t0)  # host arrays: synchronizes
+        launched = launched or launch_counts(*modules)
+    peak = max(torch.cuda.max_memory_allocated(d) for d in cards)
+    return outs, secs, launched, peak, exp
+
+
+def tm_check(name, got, ref, phase):
+    """tp_frames_check's bars, with the count of pixels over 1 LSB."""
+    row = tp_frames_check(name, got, ref, phase)
+    row["pixels_over_1_lsb"] = int(np.count_nonzero(
+        np.abs(got.astype(np.int16) - ref.astype(np.int16)) > 1))
+    return row
+
+
+def slice_4k_time_mesh(torch, dev, st, tl, hl, frames):
+    """The time mesh at 2160x3840 in all three modes: one chunk of TP_CHUNK
+    host frames on TM_SHARDS virtual shards of ``dev``
+    (``DistributedClipExporter``), with and without the original stack's
+    readback, against ``ClipProcessor(time_parallel=True)`` on the same
+    frames, in two passes (the second in reverse order). Asserts the
+    launches (phase: its 25 f32 stencils a frame summed over the shards, no
+    tail or halo kernel; motion and colour none of K1-K10) and the frames
+    (phase >= 40 dB a frame, motion and colour within 1 LSB); in the first
+    pass, a partial tail of TM_TAIL frames after the chunk runs unsharded
+    and is held to the same bars. Returns {mode: (the unsharded frames,
+    the mesh's ms/frame)} of the second pass."""
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+
+    h, w = frames.shape[1], frames.shape[2]
+    tchw = np.ascontiguousarray(frames.transpose(0, 3, 1, 2))
+    full, tail = tchw[:TP_CHUNK], tchw[TP_CHUNK:TP_CHUNK + TM_TAIL]
+    t = len(full)
+    modules = (st, tl, hl)
+    card = torch.cuda.get_device_name(dev)
+    devices = [dev] * TM_SHARDS
+    boundary = tm_boundary_ms(torch, dev, t, h, w, TM_SHARDS)
+    log(phase="tm_boundary", card=card, shape=[t, 3, h, w], shards=TM_SHARDS,
+        boundary_device_ms_per_chunk={TP_NAMES[k]: v for k, v in boundary.items()},
+        what="the fold of the shard totals and the carry-in of the later shards alone "
+             "(phase, motion), the concatenation of the tops (colour)")
+    second = {}
+    for n_pass, order in enumerate((TP_MODES, TP_MODES[::-1]), start=1):
+        for mode in order:
+            cfg, name = tp_cfg(mode), TP_NAMES[mode]
+            row = dict(phase="slice_4k_time_mesh", mode=name, run=n_pass, card=card,
+                       shape=[h, w], frames=t, chunk=t, shards=TM_SHARDS,
+                       devices=[str(d) for d in devices],
+                       boundary_device_ms_per_chunk=boundary[mode],
+                       per_chunk="process_chunk of TP_CHUNK host frames, readback included")
+            with flag_env({}):
+                proc = ClipProcessor(cfg, h, w, 3, time_parallel=True, device=dev)
+                ref, sec, _, peak = run_clip(torch, dev, proc, [full], modules)
+                row["unsharded"] = dict(ms_per_frame=1e3 * sec / t, peak_memory_bytes=peak)
+                row["levels"] = proc.key.levels
+                want = tp_expected(mode, t, h, w, proc.key.levels, *modules)
+                chunks = [full, tail] if n_pass == 1 else [full]
+                outs, secs, launched, peak, exp = run_time_mesh(torch, devices, cfg, chunks,
+                                                                modules)
+                if launched != want:
+                    raise AssertionError(f"4K time mesh {name}: launches {launched} != {want}")
+                row["mesh"] = dict(ms_per_frame=1e3 * secs[0] / t, peak_memory_bytes=peak,
+                                   launches_per_frame={k: v / t for k, v in launched.items()
+                                                       if v})
+                row["against_unsharded"] = tm_check(f"4K time mesh {name}", outs[0], ref,
+                                                    mode == "phase")
+                if n_pass == 1:
+                    ref_tail = proc.process_chunk(tail)[0]
+                    if exp.cursor != t + len(tail):
+                        raise AssertionError(f"4K time mesh {name}: cursor {exp.cursor}")
+                    row["partial_tail"] = dict(frames=len(tail), unsharded=True, **tm_check(
+                        f"4K time mesh {name} tail", outs[1], ref_tail, mode == "phase"))
+                    exp = tm_exporter(cfg, h, w, devices)
+                    prof = profile_run(torch, lambda: exp.process_chunk(full, t), t)
+                    log(phase="profile_4k_time_mesh", mode=name, card=card, shards=TM_SHARDS,
+                        **prof)
+                mesh_out = outs[0]
+                del proc, exp, outs
+                outs, secs, _, peak, _ = run_time_mesh(torch, devices, cfg, [full], modules,
+                                                       fetch_original=False)
+                row["mesh_without_original"] = dict(ms_per_frame=1e3 * secs[0] / t,
+                                                    peak_memory_bytes=peak)
+                if not np.array_equal(outs[0], mesh_out):
+                    raise AssertionError(f"4K time mesh {name}: frames without the original's "
+                                         "readback differ")
+                row["mesh_over_unsharded"] = row["mesh"]["ms_per_frame"] / \
+                    row["unsharded"]["ms_per_frame"]
+                log(**row)
+                if n_pass == 2:
+                    second[mode] = (ref, row["mesh"]["ms_per_frame"])
+                del outs, ref, mesh_out
+    return second
+
+
+def slice_time_mesh_multi_gpu(torch, st, tl, hl, frames, virtual):
+    """The time mesh over the real cards (2 to 4, one shard each) in each
+    mode, against the unsharded frames of ``slice_4k_time_mesh``'s second
+    pass (``virtual``: {mode: (frames, virtual-shard ms/frame)}), with
+    ``over_one_card``: its ms/frame over the virtual shards'. Logs
+    "skipped" on one card."""
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(phase="slice_time_mesh_multi_gpu", skipped="one CUDA device")
+        return
+    devices = [torch.device("cuda", i) for i in range(min(cards, 4))]
+    tchw = np.ascontiguousarray(frames[:TP_CHUNK].transpose(0, 3, 1, 2))
+    t, h, w = tchw.shape[0], tchw.shape[2], tchw.shape[3]
+    modules = (st, tl, hl)
+    for mode in TP_MODES:
+        cfg, name = tp_cfg(mode), TP_NAMES[mode]
+        ref, virtual_ms = virtual[mode]
+        with flag_env({}):
+            outs, secs, launched, peak, exp = run_time_mesh(torch, devices, cfg, [tchw],
+                                                            modules)
+        want = tp_expected(mode, t, h, w, exp.proc.key.levels, *modules)
+        if launched != want:
+            raise AssertionError(f"time mesh on {len(devices)} cards {name}: launches "
+                                 f"{launched} != {want}")
+        ms = 1e3 * secs[0] / t
+        log(phase="slice_time_mesh_multi_gpu", mode=name, devices=[str(d) for d in devices],
+            card=torch.cuda.get_device_name(devices[0]), shape=[h, w], frames=t,
+            ms_per_frame=ms, virtual_shards_ms_per_frame=virtual_ms,
+            over_one_card=ms / virtual_ms, peak_memory_bytes_max_card=peak,
+            against_unsharded=tm_check(f"time mesh on cards {name}", outs[0], ref,
+                                       mode == "phase"))
+        del outs, exp
+
+
+DR_SHAPE = (1080, 1920)
+DR_CHUNKS = [(0, 8), (8, 16), (16, 18)]  # two full chunks of 8 shards, a partial tail
+
+
+def dr_exporter(torch, devices, ranks, shape):
+    """DistributedClipExporter for the two-rank phase: phase, levels 6, at
+    ``shape``, on a ("time",) mesh of ``devices`` owned by ``ranks``."""
+    from live_video_magnification_tpu_torch.parallel.batch_export import (
+        DistributedClipExporter,
+    )
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh((len(devices),), ("time",), devices, ranks=ranks)
+    return DistributedClipExporter(cfg_4k(6), *shape, 3, mesh=mesh)
+
+
+def dr_frames(shape):
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    clip = moving_clip(DR_CHUNKS[-1][1], *shape, seed=SEED + 13)
+    return np.ascontiguousarray(clip.transpose(0, 3, 1, 2))
+
+
+def dr_chunks(exp, tchw):
+    """The processed frames of this process's rows of each chunk."""
+    outs = []
+    for a, b in DR_CHUNKS:
+        clen = b - a
+        if clen % exp.n_shards:
+            local = tchw[a:b]
+        else:
+            local = np.concatenate([tchw[a + r0:a + r1] for _k, r0, r1 in exp.local_rows(clen)])
+        outs.append(exp.process_chunk(local, clen, fetch_original=False)[0])
+    return outs
+
+
+def rank_worker(argv) -> int:
+    """One rank of ``distributed_2rank``
+    (``chip_smoke.py --rank R PORT DIR DEVICE H W``): join the two-rank group
+    on DEVICE's layout, hold 4 of the 8 shards, process the chunks of H x W
+    frames and save this rank's frames under DIR."""
+    import torch
+    import torch.distributed as dist
+
+    from live_video_magnification_tpu_torch.parallel import distributed
+
+    rank, port, out_dir, device = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    shape = (int(argv[4]), int(argv[5]))
+    t0 = time.perf_counter()
+    if not distributed.initialize(f"127.0.0.1:{port}", 2, rank, device=device):
+        raise AssertionError("expected a two-process group")
+    lay = distributed.layout()
+    mine = [str(lay.devices[j % len(lay.devices)]) for j in range(4)]
+    every = [None, None]
+    dist.all_gather_object(every, mine)
+    exp = dr_exporter(torch, [torch.device(d) for ds in every for d in ds], [0] * 4 + [1] * 4,
+                      shape)
+    outs = dr_chunks(exp, dr_frames(shape))
+    for (a, _b), out in zip(DR_CHUNKS, outs):
+        np.save(os.path.join(out_dir, f"rank{rank}_c{a}.npy"), out)
+    print(json.dumps(dict(rank=rank, backend=exp.backend, staged=exp.shards.staged,
+                          devices=mine, seconds=time.perf_counter() - t0)), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def distributed_2rank(torch, dev):
+    """Two ranks started here (``rank_worker``), 4 shards each, at 1080p
+    phase (chunks of 8, then a partial tail of 2 run unsharded on both):
+    NCCL on two cards where there are two, else gloo on one card, its CUDA
+    exchanges staged through host memory. Their frames must equal, bit for
+    bit, those of one process's 8 virtual shards on ``dev``."""
+    import socket
+    import tempfile
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES", "PROCESS_ID",
+                        "LVMT_DISTRIBUTED")}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                                   str(port), out_dir, dev.type, *map(str, DR_SHAPE)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True, env=env)
+                 for r in (0, 1)]
+        reports = []
+        try:
+            for r, p in enumerate(procs):
+                stdout, stderr = p.communicate(timeout=600)
+                if p.returncode != 0:
+                    raise AssertionError(f"distributed_2rank: rank {r} exited {p.returncode}:\n"
+                                         f"{stderr[-3000:]}")
+                reports.append(json.loads(stdout.strip().splitlines()[-1]))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks_s = time.perf_counter() - t0
+        got = [[np.load(os.path.join(out_dir, f"rank{r}_c{a}.npy")) for a, _b in DR_CHUNKS]
+               for r in (0, 1)]
+    exp = dr_exporter(torch, [dev] * 8, None, DR_SHAPE)
+    ref = dr_chunks(exp, dr_frames(DR_SHAPE))
+    equal = []
+    for i, (a, b) in enumerate(DR_CHUNKS):
+        if (b - a) % 8:  # the tail: both ranks ran all of it
+            equal += [np.array_equal(got[0][i], ref[i]), np.array_equal(got[1][i], ref[i])]
+        else:
+            equal.append(np.array_equal(np.concatenate([got[0][i], got[1][i]]), ref[i]))
+    backends = {rep["backend"] for rep in reports}
+    want = "nccl" if dev.type == "cuda" and torch.cuda.device_count() >= 2 else "gloo"
+    row = dict(phase="distributed_2rank", card=torch.cuda.get_device_name(dev),
+               shape=list(DR_SHAPE), levels=6, chunks=[b - a for a, b in DR_CHUNKS],
+               shards=8, backend=sorted(backends), expected_backend=want, ranks=reports,
+               bit_equal_to_one_process=all(equal), ranks_seconds=ranks_s)
+    log(**row)
+    if backends != {want}:
+        raise AssertionError(f"distributed_2rank: backend {backends}, expected {want}")
+    if not all(equal):
+        raise AssertionError(f"distributed_2rank: frames differ from one process's: {equal}")
+
+
 def bound(nbytes: float, ops: float, bf16_ops: float = 0.0):
     """(bound ms, what bounds it) on the published H100 SXM peaks: ``ops`` on
     f32 operands at the f32 rate, ``bf16_ops`` on bf16 operands at the bf16
@@ -1881,6 +2237,8 @@ def slice_4k_sharded(torch, dev, st, tl, hl, h=2160, w=3840, t=6):
 def main() -> int:
     import torch
 
+    if len(sys.argv) > 1 and sys.argv[1] == "--rank":
+        return rank_worker(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
@@ -1913,7 +2271,7 @@ def main() -> int:
     # (TP_CHUNK frames for the time-parallel cells; the first 8 for the others)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         building = pool.submit(build)
-        frames_tp = frames_4k(t=TP_CHUNK)
+        frames_tp = frames_4k(t=TP_CHUNK + TM_TAIL)
         paths, build_s = building.result()
     frames = frames_tp[:8]
     ptxas = [ln.strip() for p in paths.values() for ln in p.with_suffix(".log").read_text().splitlines()
@@ -1938,8 +2296,11 @@ def main() -> int:
     log(phase="ieee_f32", **assert_ieee_f32(torch))
     slice_4k_modes(torch, dev, st, tl, hl, frames)
     del frames, jnp_out
-    slice_4k_time_parallel(torch, dev, st, tl, hl, frames_tp)
-    del frames_tp
+    slice_4k_time_parallel(torch, dev, st, tl, hl, frames_tp[:TP_CHUNK])
+    virtual = slice_4k_time_mesh(torch, dev, st, tl, hl, frames_tp)
+    slice_time_mesh_multi_gpu(torch, st, tl, hl, frames_tp, virtual)
+    del frames_tp, virtual
+    distributed_2rank(torch, dev)
     flagship = slice_card_vs_cpu(torch, dev, st, tl, "jnp")
     slice_card_vs_cpu(torch, dev, st, tl, "level")
     slice_card_vs_cpu(torch, dev, st, tl, "fast")

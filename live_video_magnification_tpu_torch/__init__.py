@@ -14,7 +14,10 @@ Layering (lower layers never import higher ones):
     models/       the motion, colour and phase (Riesz) pipelines as step
                   functions with explicit carried state, and the processing
                   chain around them
-    parallel/     the mesh, the halo exchanges and the lane-sharded phase step
+    parallel/     the mesh, the halo exchanges and the lane-sharded phase step;
+                  the time mesh of the batch export and its multi-process
+                  bring-up (``time_shard.py``, the boundary step between
+                  time shards, imports only torch: models/ use it)
     export/       sequential clip processing with checkpoint/resume, the
                   export types and the pane composition
     io/           video file decode and encode (OpenCV, imported when called)
@@ -22,9 +25,10 @@ Layering (lower layers never import higher ones):
     cli.py        the ``info`` and ``magnify`` commands
 
 Ported so far: all three modes through the chain, ClipProcessor and the
-CLI's offline commands, and the lane-sharded phase step. The time-parallel
-forms, the engine, the other commands and the rest of parallel/ are still to
-come (ROADMAP.md).
+CLI's offline commands (sequential, ``--time-parallel`` and
+``--distributed``), the lane-sharded phase step and the time mesh. The
+engine, the other commands and the rest of parallel/ are still to come
+(ROADMAP.md).
 """
 
 __version__ = "0.1.0"

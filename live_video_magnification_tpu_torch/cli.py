@@ -16,8 +16,13 @@ reference's panels do. ``--device`` (``cuda`` by default, or ``cpu``) picks
 where the frames are processed: without a card, ``cuda`` fails rather than
 falling back to the CPU. Decoding and encoding need OpenCV (cv2).
 
-Not ported yet (ROADMAP.md): ``--distributed`` (it fails with a message),
-and the ``live``, ``record``, ``cameras`` and ``bench`` commands.
+``magnify --distributed`` shards each chunk's time axis over every device of
+every process (``parallel/batch_export.py``); start one process per host or
+card with COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID set
+(``parallel/distributed.py``), or one process alone for its own devices.
+
+Not ported yet (ROADMAP.md): the ``live``, ``record``, ``cameras`` and
+``bench`` commands.
 """
 
 from __future__ import annotations
@@ -110,10 +115,6 @@ def cmd_info(args) -> int:
 def cmd_magnify(args) -> int:
     """Streaming offline export: decode -> device chunk -> encode at constant
     host memory (a long 4K clip never materializes in RAM)."""
-    if getattr(args, "distributed", False):
-        print("error: --distributed is not ported yet, see ROADMAP.md (queue 1 item 2)",
-              file=sys.stderr)
-        return 2
     _apply_fast_mode(args)
 
     import numpy as np
@@ -143,6 +144,9 @@ def cmd_magnify(args) -> int:
     channels = 1 if probe.ndim == 2 else probe.shape[2]
     h, w = probe.shape[0], probe.shape[1]
     cfg = _config_from_args(args, fps)
+
+    if args.distributed:
+        return _magnify_distributed(args, cfg, device, split, total)
 
     proc = ClipProcessor(cfg, h, w, channels, time_parallel=args.time_parallel, device=device)
     start = args.start
@@ -210,6 +214,30 @@ def cmd_magnify(args) -> int:
         # the manifest lists, never a stale .fromN file of an older export
         _record_part(args.output, path, start)
         _concat_resumed_parts(args.output, fps=args.file_fps or fps)
+    return 0
+
+
+def _magnify_distributed(args, cfg, device, split, total) -> int:
+    """``magnify --distributed``: the export over every device of every
+    process (each process runs this with the same arguments)."""
+    from live_video_magnification_tpu_torch.parallel import distributed
+    from live_video_magnification_tpu_torch.parallel.batch_export import (
+        export_video_distributed,
+    )
+
+    distributed.initialize(device=device)
+    t0 = time.monotonic()
+    stats: dict = {}
+    final = export_video_distributed(
+        args.input, args.output, cfg, chunk=args.chunk, file_fps=args.file_fps,
+        start=args.start, end=args.end, split=split, labels=args.labels,
+        checkpoint_path=args.checkpoint, checkpoint_every=args.checkpoint_every,
+        stats=stats, device=device)
+    dt = time.monotonic() - t0
+    # frames through the processor, not the container's count (which can lie)
+    n_frames = stats.get("frames", (args.end if args.end is not None else total) - args.start)
+    print(f"\nwrote {n_frames} frames to {final} ({n_frames / dt:.1f} fps processing, "
+          f"{stats['devices']} devices, {device})", file=sys.stderr)
     return 0
 
 
@@ -332,8 +360,9 @@ def main(argv=None) -> int:
                    help="compose original|processed panes like the GUI export")
     p.add_argument("--labels", action="store_true", help="burn in pane labels")
     p.add_argument("--distributed", action="store_true",
-                   help="shard the frame axis over hosts: not ported yet (ROADMAP.md, "
-                        "queue 1 item 2)")
+                   help="shard each chunk's frame axis over every device of every process "
+                        "(COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID; one process alone "
+                        "uses its own devices)")
     _add_mag_args(p)
     p.set_defaults(fn=cmd_magnify)
 

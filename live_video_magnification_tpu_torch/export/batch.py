@@ -67,7 +67,7 @@ class ClipProcessor:
         Returns (processed, original) numpy stacks."""
         frames = torch.as_tensor(frames_u8).to(self.device)
         if self.time_parallel:
-            processed, original = self._parallel_chunk(frames)
+            self.state, (processed, original) = self._chunk_raw(self.state, frames)
         else:
             steps = []
             for frame in frames:
@@ -77,17 +77,29 @@ class ClipProcessor:
         self.cursor += frames.shape[0]
         return processed.cpu().numpy(), original.cpu().numpy()
 
-    def _parallel_chunk(self, frames: torch.Tensor):
-        """(processed, original) of a [T, C, H, W] chunk by the time-parallel
-        form; the identity path returns the magnification input."""
+    def _chunk_raw(self, state, frames, shards=None):
+        """(state, (processed, original)) of a chunk by the time-parallel
+        form, the counterpart of the reference's ``_chunk_raw``: the
+        stateless stages batched over T, then the mode's
+        ``process_clip_parallel``; the identity path returns the
+        magnification input. ``frames``: a [T, C, H, W] u8 tensor; with
+        ``shards`` (``parallel/time_shard.py::TimeShards``) one such tensor
+        for each shard this process holds, on its device, and the outputs
+        are lists of the same. ``state`` is not modified."""
         preprocess, _, gray_stage = _build_pre_stages(self.key)
-        pre = preprocess(frames)
-        magin = gray_stage(pre)
+        parts = [frames] if shards is None else list(frames)
+        pre = [preprocess(f) for f in parts]
+        magin = [gray_stage(p) for p in pre]
         par_fn = parallel_clip_fn(self.key)
         if par_fn is None:
-            return magin, pre
-        self.state, outs = par_fn(magin.contiguous(), self._dyn, state=self.state)
-        return outs, pre
+            outs = magin
+        elif shards is None:
+            state, out = par_fn(magin[0].contiguous(), self._dyn, state=state)
+            outs = [out]
+        else:
+            state, outs = par_fn([m.contiguous() for m in magin], self._dyn, state=state,
+                                 shards=shards)
+        return state, ((outs[0], pre[0]) if shards is None else (outs, pre))
 
     # -- checkpoint / resume ---------------------------------------------------------------------
 

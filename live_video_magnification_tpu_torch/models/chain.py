@@ -189,9 +189,10 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
 def parallel_clip_fn(key: _StaticKey) -> Optional[Callable]:
     """The mode's time-parallel whole-clip function for a static key, or None
     for the identity path (NONE, too-small frames, phase on gray):
-    fn(frames_tchw_u8, dyn, state=state) -> (state, outs). Phase takes only
-    ``levels``, as the reference's: its time-parallel path is f32 whatever
-    the kernel flags."""
+    fn(frames_tchw_u8, dyn, state=state) -> (state, outs), or with
+    ``shards=`` (``parallel/time_shard.py::TimeShards``) over one chunk for
+    each time shard this process holds. Phase takes only ``levels``, as the
+    reference's: its time-parallel path is f32 whatever the kernel flags."""
     if key.mode is MagnificationMode.LAPLACE:
         return functools.partial(motion_mode.process_clip_parallel, levels=key.levels)
     if key.mode is MagnificationMode.COLOR:

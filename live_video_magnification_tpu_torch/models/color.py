@@ -43,6 +43,7 @@ from live_video_magnification_tpu_torch.ops.temporal import (
     minmax_normalize,
     optimal_buffer_size,
 )
+from live_video_magnification_tpu_torch.parallel.time_shard import TimeShards, all_rows
 
 
 class ColorDynParams(NamedTuple):
@@ -128,9 +129,9 @@ def process_clip(frames_u8: torch.Tensor, dyn: ColorDynParams, *, levels: int,
     return state, torch.stack(outs)
 
 
-def process_clip_parallel(frames_u8: torch.Tensor, dyn: ColorDynParams, *, levels: int,
-                          framerate: float, state: Optional[ColorState] = None, device=None
-                          ) -> Tuple[ColorState, torch.Tensor]:
+def process_clip_parallel(frames_u8, dyn: ColorDynParams, *, levels: int,
+                          framerate: float, state: Optional[ColorState] = None, device=None,
+                          shards=None):
     """The time-parallel form of ``process_clip`` (the reference's
     ``models/color.py::process_clip_parallel``): [T, C, H, W] uint8 in,
     (state, outs) out, the state laid out as ``step``'s.
@@ -143,54 +144,84 @@ def process_clip_parallel(frames_u8: torch.Tensor, dyn: ColorDynParams, *, level
     that have it: a steady chunk (every L = N) is one product. Each frame is normalized by the min
     and max of its active rows; only the reconstructed row min(1, L-1) is
     scaled. The lengths and the warm-up passthrough (L < 2) are host ints,
-    as ``count`` is."""
-    t_total, channels, h, w = frames_u8.shape
-    n_win = window_size(framerate)
-    if state is None:
-        state = init_state(h, w, channels, levels, framerate, device=device)
-    dev = state.window.device
-    frames_u8 = frames_u8.to(dev)
+    as ``count`` is.
 
-    inputs = frames_u8.to(torch.float32)  # convertTo(CV_32F): stays in [0, 255]
-    smalls = build_gauss_pyr(inputs, levels)[levels - 1]
-    flat = smalls.reshape(t_total, -1)  # [T, P]
+    ``shards`` (``parallel/time_shard.py::TimeShards``) splits the time axis:
+    ``frames_u8`` is then a sequence of [T_k, C, H, W] chunks, one for each
+    shard this process holds, on its device, and ``outs`` a list of the
+    same. A shard's lengths count the chunk's frames before it; its windows
+    read the carried window, the earlier shards' tops (``all_rows``) and its
+    own; the final window is the whole chunk's."""
+    n_win = window_size(framerate)
+    split = shards is not None
+    if not split:
+        _, channels, h, w = frames_u8.shape
+        if state is None:
+            state = init_state(h, w, channels, levels, framerate, device=device)
+        shards = TimeShards.single(state.window.device)
+        frames = [frames_u8.to(shards.home)]
+    else:
+        frames = list(frames_u8)
+        channels, h, w = frames[0].shape[1:]
+        if state is None:
+            state = init_state(h, w, channels, levels, framerate, device=shards.home)
+    per = frames[0].shape[0]  # frames a shard
+    t_total = per * shards.count
+
+    inputs, smalls = [], []
+    for f in frames:
+        inputs.append(f.to(torch.float32))  # convertTo(CV_32F): stays in [0, 255]
+        smalls.append(build_gauss_pyr(inputs[-1], levels)[levels - 1])
+    flat = all_rows(shards, [sm.reshape(sm.shape[0], -1) for sm in smalls])  # [T, P]
 
     count = min(state.count, n_win)  # active carried rows
     carried = torch.roll(state.window.reshape(n_win, -1), n_win - count, dims=0)
     combined = torch.cat([carried, flat])  # [N + T, P], newest carried row at N - 1
-    lengths = [min(count + i + 1, n_win) for i in range(t_total)]
-    last = n_win + t_total - 1
-    base = torch.tensor([n_win + i + 1 - n for i, n in enumerate(lengths)], device=dev)
-    idx = torch.clamp(base[:, None] + torch.arange(n_win, device=dev)[None, :], max=last)
-    windows = combined[idx]  # [T, N, P]
-
+    del flat, carried
     amp = float(np.float32(dyn.amplification))
-    rows = torch.zeros_like(flat)
-    for length in sorted(set(lengths) - {1}):
-        # the lengths never decrease: the frames of one length are a run
-        i0 = lengths.index(length)
-        i1 = i0 + lengths.count(length)
-        op = ideal_bandpass_operator(n_win, length, float(dyn.co_low), float(dyn.co_high),
-                                     float(framerate), dev)
-        filtered = torch.matmul(op, windows[i0:i1])  # [g, N, P]
-        mn, inv = minmax_bounds(filtered[:, :length], dims=(1, 2))
-        rows[i0:i1] = (filtered[:, min(1, length - 1)] - mn[:, 0]) * inv[:, 0] * amp
-        del filtered
-    del windows
-    color_img = reconstruct_from_gauss_level(rows.reshape(smalls.shape), levels, (h, w))
-    output = inputs + color_img
-    # rescale each frame by its own min and max over all channels
-    omn = output.amin(dim=(1, 2, 3), keepdim=True)
-    span = output.amax(dim=(1, 2, 3), keepdim=True) - omn
-    outs = to_u8(output, span.new_full((), 255.0) / span, -omn * 255.0 / span)
-    for i, n in enumerate(lengths):
-        if n < 2:  # warm-up: the raw frame passes through
-            outs[i] = frames_u8[i]
+    outs = []
+    for j, f in enumerate(frames):
+        dev = f.device
+        g0 = shards.index(j) * per  # the chunk's frames before this shard
+        t = f.shape[0]
+        lengths = [min(count + g0 + i + 1, n_win) for i in range(t)]
+        last = n_win + g0 + t - 1  # this shard's newest top
+        base = torch.tensor([n_win + g0 + i + 1 - n for i, n in enumerate(lengths)], device=dev)
+        idx = torch.clamp(base[:, None] + torch.arange(n_win, device=dev)[None, :], max=last)
+        windows = combined.to(dev)[idx]  # [T, N, P]
+        rows = torch.zeros((t, combined.shape[1]), dtype=combined.dtype, device=dev)
+        for length in sorted(set(lengths) - {1}):
+            # the lengths never decrease: the frames of one length are a run
+            i0 = lengths.index(length)
+            i1 = i0 + lengths.count(length)
+            op = ideal_bandpass_operator(n_win, length, float(dyn.co_low), float(dyn.co_high),
+                                         float(framerate), dev)
+            filtered = torch.matmul(op, windows[i0:i1])  # [g, N, P]
+            mn, inv = minmax_bounds(filtered[:, :length], dims=(1, 2))
+            rows[i0:i1] = (filtered[:, min(1, length - 1)] - mn[:, 0]) * inv[:, 0] * amp
+            del filtered
+        del windows
+        color_img = reconstruct_from_gauss_level(rows.reshape(smalls[j].shape), levels, (h, w))
+        output = inputs[j] + color_img
+        inputs[j] = smalls[j] = None
+        del rows, color_img
+        # rescale each frame by its own min and max over all channels
+        omn = output.amin(dim=(1, 2, 3), keepdim=True)
+        span = output.amax(dim=(1, 2, 3), keepdim=True) - omn
+        out = to_u8(output, span.new_full((), 255.0) / span, -omn * 255.0 / span)
+        del output, omn, span
+        for i, n in enumerate(lengths):
+            if n < 2:  # warm-up: the raw frame passes through
+                out[i] = f[i]
+        outs.append(out)
 
     # the final window: the last L rows of the combined sequence, oldest first,
     # rows past L zeroed
+    dev = shards.home
     l_final = min(count + t_total, n_win)
+    last = n_win + t_total - 1
     fidx = torch.clamp(n_win + t_total - l_final + torch.arange(n_win, device=dev), max=last)
     final = combined[fidx]
     final[l_final:] = 0.0
-    return ColorState(l_final, final.reshape(state.window.shape)), outs
+    new_state = ColorState(l_final, final.reshape(state.window.shape))
+    return new_state, (outs if split else outs[0])

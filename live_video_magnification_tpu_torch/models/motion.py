@@ -39,7 +39,12 @@ from live_video_magnification_tpu_torch.ops.pyramid import (
     collapse_laplace_pyr,
     pyramid_sizes,
 )
-from live_video_magnification_tpu_torch.ops.temporal import associative_scan, iir_filter
+from live_video_magnification_tpu_torch.ops.temporal import (
+    associative_scan,
+    ema_carry,
+    iir_filter,
+)
+from live_video_magnification_tpu_torch.parallel.time_shard import TimeShards, fold_carries
 
 
 class MotionDynParams(NamedTuple):
@@ -147,9 +152,8 @@ def _ema_combine(lhs, rhs):
     return a1 * a2, a2 * b1 + b2
 
 
-def process_clip_parallel(frames_u8: torch.Tensor, dyn: MotionDynParams, *, levels: int,
-                          state: Optional[MotionState] = None, device=None
-                          ) -> Tuple[MotionState, torch.Tensor]:
+def process_clip_parallel(frames_u8, dyn: MotionDynParams, *, levels: int,
+                          state: Optional[MotionState] = None, device=None, shards=None):
     """The time-parallel form of ``process_clip`` (the reference's
     ``models/motion.py::process_clip_parallel``): [T, C, H, W] uint8 in,
     (state, outs) out, the state laid out as ``step``'s.
@@ -158,53 +162,98 @@ def process_clip_parallel(frames_u8: torch.Tensor, dyn: MotionDynParams, *, leve
     in O(log T) depth. Its t = 0 element folds in the seed, the frame's own
     pyramid on the first frame of a clip and the carried EMA otherwise, with
     the arithmetic of ``step``. The residual's EMA slots are seeded on the
-    first frame and then carried. Every other stage runs batched over T."""
-    t, c, h, w = frames_u8.shape
-    color = c >= 3
-    if state is None:
-        state = init_state(h, w, c, levels, device=device)
-    frames_u8 = frames_u8.to(state.lowpass_hi[0].device)
-    first = state.count == 0
+    first frame and then carried. Every other stage runs batched over T.
 
-    x = u8_to_unit_f32(frames_u8)
-    inputs = bgr_to_lab(x) if color else x
-    pyrs = build_laplace_pyr(inputs, levels)  # per level [T, C, h, w]
+    ``shards`` (``parallel/time_shard.py::TimeShards``) splits the time axis:
+    ``frames_u8`` is then a sequence of [T_k, C, H, W] chunks, one for each
+    shard this process holds, on its device, and ``outs`` a list of the
+    same. The seed is global shard 0's; a later shard scans each EMA from a
+    zero state and takes what enters it, folded from the earlier shards'
+    totals, as l_t = (1-c)^(t+1) carry + local_t (``ema_carry``)."""
+    split = shards is not None
+    if not split:
+        t, c, h, w = frames_u8.shape
+        if state is None:
+            state = init_state(h, w, c, levels, device=device)
+        shards = TimeShards.single(state.lowpass_hi[0].device)
+        frames = [frames_u8.to(shards.home)]
+    else:
+        frames = list(frames_u8)
+        c, h, w = frames[0].shape[1:]
+        if state is None:
+            state = init_state(h, w, c, levels, device=shards.home)
+    color = c >= 3
+    first = state.count == 0
+    ids = [shards.index(j) for j in range(len(frames))]
+    span = frames[0].shape[0]
+
+    inputs, pyrs = [], []
+    for f in frames:
+        x = u8_to_unit_f32(f)
+        inputs.append(bgr_to_lab(x) if color else x)
+        pyrs.append(build_laplace_pyr(inputs[-1], levels))  # per level [T, C, h, w]
+        del x
 
     co_low = np.float32(dyn.co_low)
     if co_low == 0.0:
         co_low = np.float32(0.01)
 
-    def ema_scan(xs, cutoff, carry):
+    def ema_scan(xs, cutoff, carry, k):
+        t = xs.shape[0]
         keep, cut = float(np.float32(1.0) - cutoff), float(cutoff)
+        a = torch.full((t,) + (1,) * (xs.ndim - 1), keep, dtype=xs.dtype, device=xs.device)
+        if k > 0:  # from a zero state
+            return associative_scan(_ema_combine, (a, cut * xs))[1]
         seed = xs[0] if first else carry
         b = torch.cat([(keep * seed + cut * xs[0])[None], cut * xs[1:]])
-        a = torch.full((t,) + (1,) * (xs.ndim - 1), keep, dtype=xs.dtype, device=xs.device)
         a[0] = 1.0
         return associative_scan(_ema_combine, (a, b))[1]
 
-    motion, new_hi, new_lo = [], [], []
+    def ema(lvl, cutoff, carried):
+        """Each shard's EMA of level ``lvl``, and the chunk's last."""
+        keep = np.float32(1.0) - cutoff
+        scans = [ema_scan(pyrs[j][lvl], cutoff, carried, k) for j, k in enumerate(ids)]
+        ins, (fin,) = fold_carries(shards.gather([[s[-1]] for s in scans]),
+                                   lambda local, s: (ema_carry(local[0], s[0], keep,
+                                                               at=span - 1),))
+        return [s if k == 0 else ema_carry(s, ins[k][0], keep)
+                for s, k in zip(scans, ids)], fin.to(shards.home).clone()
+
+    motion = [[] for _ in frames]
+    new_hi, new_lo = [], []
     for lvl in range(levels):
-        l_hi = ema_scan(pyrs[lvl], np.float32(dyn.co_high), state.lowpass_hi[lvl])
-        l_lo = ema_scan(pyrs[lvl], co_low, state.lowpass_lo[lvl])
-        motion.append(l_hi - l_lo)
-        new_hi.append(l_hi[-1].clone())
-        new_lo.append(l_lo[-1].clone())
-        del l_hi, l_lo
-    residual = pyrs[levels]
-    motion.append(residual)  # zeroed by the ladder
-    new_hi.append(residual[0].clone() if first else state.lowpass_hi[levels])
-    new_lo.append(residual[0].clone() if first else state.lowpass_lo[levels])
+        l_his, fin_hi = ema(lvl, np.float32(dyn.co_high), state.lowpass_hi[lvl])
+        l_los, fin_lo = ema(lvl, co_low, state.lowpass_lo[lvl])
+        for j in range(len(frames)):
+            motion[j].append(l_his[j] - l_los[j])
+        new_hi.append(fin_hi)
+        new_lo.append(fin_lo)
+        del l_his, l_los
+    for j in range(len(frames)):
+        motion[j].append(pyrs[j][levels])  # the residual, zeroed by the ladder
+    if first:  # the residual's slots are seeded with global frame 0's
+        seed = shards.gather([[p[levels][0]] for p in pyrs])[0][0].to(shards.home)
+        new_hi.append(seed.clone())
+        new_lo.append(seed.clone())
+    else:
+        new_hi.append(state.lowpass_hi[levels])
+        new_lo.append(state.lowpass_lo[levels])
     del pyrs
 
     gains = ladder_gains(dyn, h, w, levels)
-    amplified = [m * (0.0 if g is None else g) for m, g in zip(motion, gains)]
-    del motion
-    motion_img = collapse_laplace_pyr(amplified)
-    del amplified
-    if color:  # chroma attenuation of a and b
-        motion_img = torch.cat([motion_img[:, :1],
-                                motion_img[:, 1:] * float(np.float32(dyn.chrom_attenuation))],
-                               dim=1)
-    output = inputs + motion_img
-    outs = to_u8(lab_to_bgr(output) if color else output, 255.0, 1.0 / 255.0)
-    return MotionState(state.count + t, tuple(new_hi), tuple(new_lo)), outs
+    outs = []
+    for j in range(len(frames)):
+        amplified = [m * (0.0 if g is None else g) for m, g in zip(motion[j], gains)]
+        motion[j] = None
+        motion_img = collapse_laplace_pyr(amplified)
+        del amplified
+        if color:  # chroma attenuation of a and b
+            motion_img = torch.cat([motion_img[:, :1],
+                                    motion_img[:, 1:] * float(np.float32(dyn.chrom_attenuation))],
+                                   dim=1)
+        output = inputs[j] + motion_img
+        inputs[j] = None
+        outs.append(to_u8(lab_to_bgr(output) if color else output, 255.0, 1.0 / 255.0))
+        del motion_img, output
+    new_state = MotionState(state.count + span * shards.count, tuple(new_hi), tuple(new_lo))
+    return new_state, (outs if split else outs[0])

@@ -52,8 +52,15 @@ from live_video_magnification_tpu_torch.ops.riesz import (
 )
 from live_video_magnification_tpu_torch.ops.temporal import (
     CompExp,
+    df2_dual_carry,
+    df2_dual_carry_outputs,
     df2_dual_filter_parallel,
     riesz_df2_step,
+)
+from live_video_magnification_tpu_torch.parallel.time_shard import (
+    TimeShards,
+    fold_carries,
+    last_frames,
 )
 
 Coeffs = Tuple[float, float, float]
@@ -316,9 +323,8 @@ def _batched_level(levels: List[RieszLevel]) -> RieszLevel:
                               torch.stack([p.riesz.sin for p in levels])))
 
 
-def process_clip_parallel(frames_u8: torch.Tensor, dyn: RieszDynParams, *, levels: int,
-                          state: Optional[RieszState] = None, device=None
-                          ) -> Tuple[RieszState, torch.Tensor]:
+def process_clip_parallel(frames_u8, dyn: RieszDynParams, *, levels: int,
+                          state: Optional[RieszState] = None, device=None, shards=None):
     """The time-parallel form of ``process_clip`` (the reference's
     ``models/riesz.py::process_clip_parallel``): [T, 3, H, W] uint8 in,
     (state, outs) out, the state laid out as ``step``'s.
@@ -337,77 +343,139 @@ def process_clip_parallel(frames_u8: torch.Tensor, dyn: RieszDynParams, *, level
     and the plain tail. The cutoffs are the clip's: ``reset_filters`` is a
     streaming event and is not read; ``force_init`` passes every frame
     through, as the first frame of a clip is. The carried prior pyramid
-    keeps the state's dtypes (bf16 band levels under ``pyr_io``)."""
-    t, _, h, w = frames_u8.shape
-    if state is None:
-        state = init_state(h, w, levels, device=device)
-    frames_u8 = frames_u8.to(state.old[0].lowpass.device)
-    first = state.count == 0
+    keeps the state's dtypes (bf16 band levels under ``pyr_io``).
 
-    labs = bgr_to_lab(u8_to_unit_f32(frames_u8))  # [T, 3, H, W]
-    per_frame = [build_riesz_pyramid(labs[i, 0], levels) for i in range(t)]
-    pyrs = [_batched_level([p[lvl] for p in per_frame]) for lvl in range(levels)]
-    del per_frame
+    ``shards`` (``parallel/time_shard.py::TimeShards``) splits the time axis,
+    as the reference's T-sharded call does: ``frames_u8`` is then a sequence
+    of [T_k, 3, H, W] chunks, one for each shard this process holds, on its
+    device, and ``outs`` a list of the same. The first-frame rules hold for
+    global shard 0 alone; frame 0 of a later shard takes the last pyramid of
+    the shard before it as its prior, and scans from a zero state that the
+    fold of the shard totals then carries in (``df2_dual_carry``,
+    ``df2_dual_carry_outputs``). Every process ends with the whole chunk's
+    state on its first shard's device, where the carried state lies (global
+    shard 0 is the first of its process)."""
+    split = shards is not None
+    if not split:
+        t, _, h, w = frames_u8.shape
+        if state is None:
+            state = init_state(h, w, levels, device=device)
+        shards = TimeShards.single(state.old[0].lowpass.device)
+        frames = [frames_u8.to(shards.home)]
+    else:
+        frames = list(frames_u8)
+        h, w = frames[0].shape[2:]
+        if state is None:
+            state = init_state(h, w, levels, device=shards.home)
+    first = state.count == 0
+    ids = [shards.index(j) for j in range(len(frames))]
     coeffs = (dyn.b_lo, dyn.a_lo, dyn.b_hi, dyn.a_hi)
+    span = frames[0].shape[0]  # every shard holds as many frames
 
     def init(x):  # the filters start from zero on the first frame
         return torch.zeros_like(x) if first else x
 
+    labs, pyrs = [], []
+    for f in frames:
+        lab = bgr_to_lab(u8_to_unit_f32(f))  # [T, 3, H, W]
+        per_frame = [build_riesz_pyramid(lab[i, 0], levels) for i in range(f.shape[0])]
+        pyrs.append([_batched_level([p[lvl] for p in per_frame]) for lvl in range(levels)])
+        labs.append(lab)
+        del per_frame
+    # the one-frame halo: each shard's last pyramid, for the next shard's
+    # prior and (the last shard's) the new state's
+    priors, last = last_frames(shards, [
+        [x for p in pyr for x in (p.lowpass[-1], p.riesz.cos[-1], p.riesz.sin[-1])]
+        for pyr in pyrs])
+
     new_acc: List[CompExp] = []
     new_lo: List[RegPair] = []
     new_hi: List[RegPair] = []
-    lowpasses: List[torch.Tensor] = []
+    lowpasses: List[List[torch.Tensor]] = [[] for _ in frames]
     for lvl in range(levels - 1):
-        cur = pyrs[lvl]
-        # prior[t] = cur[t-1]; prior[0] = the carried pyramid, or cur[0] on
-        # the first frame
-        seed = (RieszLevel(cur.lowpass[0], CompExp(cur.riesz.cos[0], cur.riesz.sin[0]))
-                if first else level_f32(state.old[lvl]))
-        shift = lambda x, s: torch.cat([s[None], x[:-1]])
-        prior = RieszLevel(shift(cur.lowpass, seed.lowpass),
-                           CompExp(shift(cur.riesz.cos, seed.riesz.cos),
-                                   shift(cur.riesz.sin, seed.riesz.sin)))
-        pr = phase_difference_and_amplitude(cur, prior)
-        del prior
+        results = []
+        for j, k in enumerate(ids):
+            cur = pyrs[j][lvl]
+            # prior[t] = cur[t-1]; prior[0] = the carried pyramid, or cur[0] on
+            # the first frame, or the last pyramid of the shard before
+            if k > 0:
+                seed = RieszLevel(priors[j][3 * lvl], CompExp(*priors[j][3 * lvl + 1:3 * lvl + 3]))
+            elif first:
+                seed = RieszLevel(cur.lowpass[0], CompExp(cur.riesz.cos[0], cur.riesz.sin[0]))
+            else:
+                seed = level_f32(state.old[lvl])
+            shift = lambda x, s: torch.cat([s[None], x[:-1]])
+            prior = RieszLevel(shift(cur.lowpass, seed.lowpass),
+                               CompExp(shift(cur.riesz.cos, seed.riesz.cos),
+                                       shift(cur.riesz.sin, seed.riesz.sin)))
+            results.append(phase_difference_and_amplitude(cur, prior))
+            del prior
         acc, lo, hi = state.acc[lvl], state.lo[lvl], state.hi[lvl]
 
         def dual(comp):  # one component at a time: the scan's planes are large
             sel = lambda ce: getattr(ce, comp)
-            y_lo, y_hi, _, fin = df2_dual_filter_parallel(
-                sel(pr.phase_diff), *coeffs, acc_init=init(sel(acc)),
-                lo_init=(init(sel(lo.reg0)), init(sel(lo.reg1))),
-                hi_init=(init(sel(hi.reg0)), init(sel(hi.reg1))))
-            return y_lo, y_hi, fin
+            ys, finals = [], []
+            for j, k in enumerate(ids):
+                diff = getattr(results[j].phase_diff, comp)
+                if k == 0:  # scans from the carried state
+                    y_lo, y_hi, _, fin = df2_dual_filter_parallel(
+                        diff, *coeffs, acc_init=init(sel(acc)),
+                        lo_init=(init(sel(lo.reg0)), init(sel(lo.reg1))),
+                        hi_init=(init(sel(hi.reg0)), init(sel(hi.reg1))))
+                else:  # from a zero state; what enters it is carried in below
+                    y_lo, y_hi, _, fin = df2_dual_filter_parallel(diff, *coeffs)
+                ys.append((y_lo, y_hi))
+                finals.append(list(fin))
+            ins, fin = fold_carries(
+                shards.gather(finals),
+                lambda local, s: df2_dual_carry(local, s, *coeffs, at=span - 1))
+            for j, k in enumerate(ids):
+                if k > 0:
+                    ys[j] = df2_dual_carry_outputs(*ys[j], ins[k], *coeffs)
+            return ys, tuple(v.to(shards.home) for v in fin)
 
-        (lo_c, hi_c, fc), (lo_s, hi_s, fs) = dual("cos"), dual("sin")
+        (ys_c, fc), (ys_s, fs) = dual("cos"), dual("sin")
         new_acc.append(CompExp(fc[0], fs[0]))
         new_lo.append(RegPair(CompExp(fc[1], fs[1]), CompExp(fc[2], fs[2])))
         new_hi.append(RegPair(CompExp(fc[3], fs[3]), CompExp(fc[4], fs[4])))
-        normalized = normalize_phase(CompExp(hi_c, hi_s), CompExp(lo_c, lo_s), pr.amplitude,
-                                     pr.amplitude_blurred)
-        del lo_c, hi_c, lo_s, hi_s, pr
-        lowpasses.append(amplify_level(cur, normalized, dyn.amplification, dyn.threshold))
-        del normalized
-    lowpasses.append(pyrs[levels - 1].lowpass)  # untouched residual octave
+        for j in range(len(frames)):
+            (lo_c, hi_c), (lo_s, hi_s) = ys_c[j], ys_s[j]
+            ys_c[j] = ys_s[j] = None
+            pr = results[j]
+            results[j] = None
+            normalized = normalize_phase(CompExp(hi_c, hi_s), CompExp(lo_c, lo_s),
+                                         pr.amplitude, pr.amplitude_blurred)
+            del lo_c, hi_c, lo_s, hi_s, pr
+            lowpasses[j].append(amplify_level(pyrs[j][lvl], normalized, dyn.amplification,
+                                              dyn.threshold))
+            del normalized
+    for j in range(len(frames)):
+        lowpasses[j].append(pyrs[j][levels - 1].lowpass)  # untouched residual octave
 
-    # "*st.old = *st.cur": the last frame's pyramid, in the carried dtypes
+    # "*st.old = *st.cur": the chunk's last pyramid, in the carried dtypes
     new_old = tuple(
-        RieszLevel(p.lowpass[-1].to(o.lowpass.dtype, copy=True),
-                   CompExp(p.riesz.cos[-1].to(o.riesz.cos.dtype, copy=True),
-                           p.riesz.sin[-1].to(o.riesz.sin.dtype, copy=True)))
-        for p, o in zip(pyrs, state.old))
-    del pyrs
-    magnified = torch.stack([collapse_riesz_pyramid([lp[i] for lp in lowpasses])
-                             for i in range(t)])
-    del lowpasses
-    merged = torch.stack([magnified, labs[:, 1], labs[:, 2]], dim=1)
-    outs = to_u8(lab_to_bgr(merged), 255.0, 1.0 / 255.0)
-    # the first frame of a clip, and every frame under degenerate
-    # coefficients, pass the raw input through (MagnifyCore.hpp:226-239)
-    if dyn.force_init:
-        outs = frames_u8.clone()
-    elif first:
-        outs[0] = frames_u8[0]
-    new_state = RieszState(state.count + t, new_old, tuple(new_acc), tuple(new_lo),
+        RieszLevel(last[3 * lvl].to(o.lowpass.dtype, copy=True),
+                   CompExp(last[3 * lvl + 1].to(o.riesz.cos.dtype, copy=True),
+                           last[3 * lvl + 2].to(o.riesz.sin.dtype, copy=True)))
+        for lvl, o in enumerate(state.old))
+    del pyrs, last, priors
+    outs = []
+    for j, k in enumerate(ids):
+        t = frames[j].shape[0]
+        magnified = torch.stack([collapse_riesz_pyramid([lp[i] for lp in lowpasses[j]])
+                                 for i in range(t)])
+        lowpasses[j] = None
+        merged = torch.stack([magnified, labs[j][:, 1], labs[j][:, 2]], dim=1)
+        labs[j] = None
+        out = to_u8(lab_to_bgr(merged), 255.0, 1.0 / 255.0)
+        del magnified, merged
+        # the first frame of a clip, and every frame under degenerate
+        # coefficients, pass the raw input through (MagnifyCore.hpp:226-239)
+        if dyn.force_init:
+            out = frames[j].clone()
+        elif first and k == 0:
+            out[0] = frames[j][0]
+        outs.append(out)
+    new_state = RieszState(state.count + span * shards.count, new_old, tuple(new_acc), tuple(new_lo),
                            tuple(new_hi))
-    return new_state, outs
+    return new_state, (outs if split else outs[0])

@@ -18,7 +18,17 @@ The counterpart of the reference package's ``ops/temporal.py``
     phase accumulation (:340-351);
   * associative_scan, df2_filter_parallel and df2_dual_filter_parallel: the
     time-parallel forms (the reference's :211-412), log-depth scans over the
-    time axis that combine in the reference's tree.
+    time axis that combine in the reference's tree;
+  * their shard forms, for a time axis split into shards: a shard scans from
+    a zero state, and the state s_in that later arrives from the shards
+    before it is carried in as s_t = local_t + M_t s_in, M_t the product of
+    the shard's first t + 1 transitions: on the shard's last step for the
+    fold of the shard totals (``df2_carry``, ``df2_dual_carry``), and on the
+    outputs that read the states (``df2_filter_carry``,
+    ``df2_dual_carry_outputs``, ``ema_carry``: one addmm or addcmul each).
+    The transitions are constant, so M_t = A^(t+1): it is computed on the
+    host in f64 and rounded once to f32, the same on every process, and
+    kept on the device per shard length.
 """
 
 from __future__ import annotations
@@ -324,6 +334,131 @@ def df2_filter_parallel(xs: torch.Tensor, b, a, reg0_init=None, reg1_init=None):
     reg0, reg1 = scanned[4], scanned[5]
     y = float(b0) * xs + _shifted(reg0, reg0_init)
     return y, reg0, reg1
+
+
+def _powers(a: np.ndarray, t: int, first: int = 1) -> np.ndarray:
+    """[t, n, n] f32: entry i is a^(i + first), multiplied out in f64 and
+    rounded once."""
+    out = np.empty((t,) + a.shape, np.float64)
+    m = np.linalg.matrix_power(a, first)
+    for i in range(t):
+        out[i] = m
+        m = a @ m
+    return out.astype(np.float32)
+
+
+def _key(*coeffs) -> Tuple[Tuple[float, ...], ...]:
+    """Coefficient triples as hashable f32-rounded floats."""
+    return tuple(tuple(float(x) for x in _f32s(*c)) for c in coeffs)
+
+
+def _df2_transition(a) -> np.ndarray:
+    _, a1, a2 = _f32s(*a)
+    return np.array([[-a1, 1.0], [-a2, 0.0]], np.float64)
+
+
+def _dual_transition(b_lo, a_lo, b_hi, a_hi) -> np.ndarray:
+    """The 5x5 transition of (acc, r0lo, r1lo, r0hi, r1hi) without input,
+    its entries rounded to f32 as ``df2_dual_filter_parallel`` rounds them."""
+    m = np.zeros((5, 5), np.float64)
+    m[0, 0] = 1.0
+    for row, b, a in ((1, b_lo, a_lo), (3, b_hi, a_hi)):
+        b0, b1, b2 = _f32s(*b)
+        _, a1, a2 = _f32s(*a)
+        m[row, 0], m[row + 1, 0] = b1 - a1 * b0, b2 - a2 * b0
+        m[row, row], m[row, row + 1], m[row + 1, row] = -a1, 1.0, -a2
+    return m
+
+
+@lru_cache(maxsize=64)
+def _output_carry(kind: str, t: int, coeffs, device: torch.device) -> torch.Tensor:
+    """[t, k, n] f32 on ``device``: row t maps the state that enters a shard
+    to what it adds to the shard's outputs at step t (A^0 = I):
+      df2:  y[t]   += (A^t s_in)[reg0]                      (k = 1, n = 2)
+      dual: y_x[t] += bx0 acc_in + (A^t s_in)[r0x], x in lo, hi  (k = 2, n = 5)
+      ema:  l[t]   += keep^(t+1) carry                      (k = 1, n = 1)
+    Built once per key and reused: a steady chunk copies nothing to the
+    device."""
+    if kind == "df2":
+        rows = _powers(_df2_transition(coeffs[1]), t, first=0)[:, :1]
+    elif kind == "dual":
+        b_lo, a_lo, b_hi, a_hi = coeffs
+        p = _powers(_dual_transition(b_lo, a_lo, b_hi, a_hi), t, first=0)
+        rows = p[:, [1, 3]].copy()
+        rows[:, 0, 0] += np.float32(b_lo[0])
+        rows[:, 1, 0] += np.float32(b_hi[0])
+    else:
+        rows = _powers(np.array([[coeffs[0]]], np.float64), t)
+    return torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+
+
+def _add_carry(ys, rows: torch.Tensor, carry) -> List[torch.Tensor]:
+    """Each y [t, ...] plus rows[:, i] @ carry: one product-and-add (addmm)
+    a y over the flattened planes."""
+    t = ys[0].shape[0]
+    s_in = torch.stack([torch.broadcast_to(c, ys[0].shape[1:]) for c in carry]).to(ys[0])
+    flat = s_in.reshape(len(carry), -1)
+    return [torch.addmm(y.reshape(t, -1), rows[:, i].contiguous(), flat).reshape(y.shape)
+            for i, y in enumerate(ys)]
+
+
+def df2_carry(states, carry, a, at: int):
+    """The register pair (reg0, reg1) after step ``at`` of a shard scanned
+    from a zero state (``df2_filter_parallel`` without inits), with the
+    registers ``carry`` that entered it carried in: s = local + A^(at+1)
+    carry. ``states``: that step's [...] planes. The fold of the shard
+    totals takes one such step a shard (``parallel/time_shard.py``)."""
+    m = _powers(_df2_transition(a), 1, at + 1)[0]
+    (r0, r1), (i0, i1) = states, carry
+    return (r0 + float(m[0, 0]) * i0 + float(m[0, 1]) * i1,
+            r1 + float(m[1, 0]) * i0 + float(m[1, 1]) * i1)
+
+
+def df2_filter_carry(y: torch.Tensor, carry, b, a) -> torch.Tensor:
+    """``df2_filter_parallel``'s output y [t, ...] for a shard scanned from a
+    zero state, once the registers ``carry`` (reg0, reg1) that entered it
+    are known: y[t] + (A^t carry)[reg0], the reg0 read at step t."""
+    rows = _output_carry("df2", y.shape[0], _key(b, a), y.device)
+    return _add_carry([y], rows, carry)[0]
+
+
+def df2_dual_carry(states, carry, b_lo, a_lo, b_hi, a_hi, at: int):
+    """The state (acc, r0lo, r1lo, r0hi, r1hi) after step ``at`` of a shard
+    scanned from a zero state (``df2_dual_filter_parallel`` without inits),
+    with the state ``carry`` that entered it carried in: s = local +
+    A^(at+1) carry, the accumulator row of A the identity. ``states``: that
+    step's [...] planes (the shard's totals, for the fold)."""
+    m = _powers(_dual_transition(b_lo, a_lo, b_hi, a_hi), 1, at + 1)[0]
+    out = []
+    for i, s in enumerate(states):
+        for j, c in enumerate(carry):
+            if m[i, j] != 0.0:  # block lower-triangular
+                s = s + float(m[i, j]) * c
+        out.append(s)
+    return tuple(out)
+
+
+def df2_dual_carry_outputs(y_lo: torch.Tensor, y_hi: torch.Tensor, carry,
+                           b_lo, a_lo, b_hi, a_hi):
+    """``df2_dual_filter_parallel``'s y_lo, y_hi [t, ...] for a shard scanned
+    from a zero state, once the state ``carry`` (acc, r0lo, r1lo, r0hi,
+    r1hi) that entered it is known: s_t = local_t + A^(t+1) carry, so
+    y_x[t] = bx0 acc[t] + r0x[t-1] gains bx0 acc_in + (A^t carry)[r0x]
+    (A^0 = I: at t = 0 the entering register). One addmm a component."""
+    rows = _output_carry("dual", y_lo.shape[0], _key(b_lo, a_lo, b_hi, a_hi), y_lo.device)
+    return tuple(_add_carry([y_lo, y_hi], rows, carry))
+
+
+def ema_carry(local: torch.Tensor, carry, keep, at: Optional[int] = None):
+    """An EMA l_t = keep * l_(t-1) + x_t of a shard scanned from a zero
+    state, with the EMA ``carry`` that entered the shard carried in:
+    l_t = keep^(t+1) carry + local_t, one addcmul. ``local`` is [t, ...], or
+    one [...] row with ``at`` its index in the shard."""
+    keep = float(np.float32(keep))
+    if at is not None:
+        return local + float(_powers(np.array([[keep]], np.float64), 1, at + 1)[0, 0, 0]) * carry
+    col = _output_carry("ema", local.shape[0], (keep,), local.device)
+    return torch.addcmul(local, col.reshape((-1,) + (1,) * (local.ndim - 1)), carry)
 
 
 def df2_dual_filter_parallel(diff: torch.Tensor, b_lo, a_lo, b_hi, a_hi,

@@ -840,3 +840,65 @@ def test_sharded_step_across_two_cards(cuda):
     worst, launched = _sharded_against_unsharded(devices, 270, 480, 5, "mxu")
     assert worst <= 1, f"{worst} LSB"
     assert launched == 4 * 2 * 17
+
+
+# ---------------------------------------------------------------- the time mesh
+
+def _time_mesh_runs(mode, levels, fps, t, devices, h=1080, w=1920):
+    """One chunk of ``t`` frames through DistributedClipExporter on a
+    ("time",) mesh of ``devices`` and through ClipProcessor(time_parallel=True)
+    on the first of them. Returns (sharded, unsharded, launches of the
+    sharded run by module, levels)."""
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.ops.hopper import halo, tail
+    from live_video_magnification_tpu_torch.parallel.batch_export import (
+        DistributedClipExporter,
+    )
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    cfg = _mode_cfg(mode, levels, fps)
+    tchw = np.ascontiguousarray(moving_clip(t, h, w, seed=12).transpose(0, 3, 1, 2))
+    exp = DistributedClipExporter(cfg, h, w, 3, mesh=make_mesh((len(devices),), ("time",),
+                                                               devices))
+    modules = (stencils.LAUNCHES, tail.LAUNCHES, halo.LAUNCHES)
+    before = [dict(m) for m in modules]
+    sharded, _ = exp.process_chunk(tchw, t, fetch_original=False)
+    launched = [{k: v - b[k] for k, v in m.items()} for m, b in zip(modules, before)]
+    plain = ClipProcessor(cfg, h, w, 3, time_parallel=True, device=devices[0])
+    unsharded, _ = plain.process_chunk(tchw)
+    return sharded, unsharded, launched, exp.proc.key.levels
+
+
+@pytest.mark.parametrize("mode,levels,fps", [("phase", 6, 30.0), ("laplace", 4, 30.0),
+                                             ("color", 3, 8.0)])
+def test_time_mesh_on_virtual_shards_matches_the_unsharded_path(cuda, mode, levels, fps):
+    """1080x1920, 8 frames on 4 virtual shards of one card against the
+    unsharded time-parallel path: within 1 LSB. Phase launches its f32
+    stencils once a frame and level summed over the shards
+    (``ops/riesz.py::stencil_launches``: K1-K4 23 a frame, K5 once, on the
+    68x120 level), and no tail or halo kernel; motion and colour launch
+    none of K1-K10."""
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+
+    t = 8
+    sharded, unsharded, launched, lv = _time_mesh_runs(mode, levels, fps, t, [cuda] * 4)
+    lsb = int(np.abs(sharded.astype(np.int16) - unsharded.astype(np.int16)).max())
+    assert lsb <= 1, f"{mode}: {lsb} LSB against the unsharded path"
+    want = ({k: v * t for k, v in stencil_launches(1080, 1920, lv).items()}
+            if mode == "phase" else {k: 0 for k in stencils.LAUNCHES})
+    assert launched[0] == want, launched
+    if mode == "phase":
+        assert want == {"conv9": 9 * t, "band5": 4 * t, "lp9_decimate": 4 * t,
+                        "lp9_inject": 5 * t, "riesz_build_level": t}
+    assert all(v == 0 for m in launched[1:] for v in m.values()), launched
+
+
+def test_time_mesh_across_cards_matches_the_unsharded_path(cuda):
+    """Phase over two real cards, two shards each: the carry and the halo
+    cross cards; within 1 LSB of the unsharded path on the first card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: the shards' exchanges cross cards")
+    devices = [torch.device("cuda", i) for i in (0, 0, 1, 1)]
+    sharded, unsharded, _, _ = _time_mesh_runs("phase", 6, 30.0, 8, devices)
+    assert int(np.abs(sharded.astype(np.int16) - unsharded.astype(np.int16)).max()) <= 1
