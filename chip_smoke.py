@@ -109,7 +109,26 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      with its ms/frame over the virtual shards'; then two ranks started by
      this script (``--rank``) at 1080x1920 phase, 4 shards each (NCCL on
      two cards where there are two, else gloo on one), their frames bit
-     for bit those of one process's 8 virtual shards.
+     for bit those of one process's 8 virtual shards;
+ 12. the live engine (``engine/*``, phase under the default flags): the
+     consumer alone (``engine_consumer_4k``: ``ProcessingChain`` on a Block
+     queue holding 16 pooled 2160x3840 synthetic frames, each published pair
+     bit for bit ``MagnificationChain.process``'s); ``PlaybackController``
+     runs of a paced ``SyntheticSource`` (``live_4k30``: 2160x3840 at 30 fps,
+     camera semantics; ``live_1080p60``: 1080x1920 at 60 fps;
+     ``live_1080p60_roi``: BASELINE config 4 as ``bench.py:215-263`` sets
+     it up, on the Python transport and on the native one, LVMT_NATIVE=1)
+     with a ``DisplayLoop`` polling at 120 Hz: steady and EMA fps, latency
+     mean and p95, captured / processed / drops / display skipped, queue
+     depth, the source's render ms alone, the consumer's copies by events,
+     and exactly ``ops/riesz.py::stencil_launches`` a processed frame with
+     no other kernel, no processing or read error, and every sampled frame
+     after the first magnified; then ``record_export_1080p``: about 2 s of
+     a synthetic camera recorded through ``start_recording`` /
+     ``stop_recording`` and exported by ``Exporter`` (left-right, an
+     in-memory writer in place of ``exporter.open_writer``: the card's
+     machine has no cv2), every written frame bit for bit a fresh chain's
+     frames composed by ``compose``.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
@@ -2234,6 +2253,384 @@ def slice_4k_sharded(torch, dev, st, tl, hl, h=2160, w=3840, t=6):
     return runs
 
 
+# ---------------------------------------------------------------- the live engine
+
+LIVE_S = 8.0       # seconds of the live_4k30 and live_1080p60 runs
+LIVE_ROI_S = 6.0   # seconds of each config-4 run
+CONSUMER_FRAMES = 16
+RECORD_S = 2.0
+
+
+def live_params(levels, fps):
+    """Phase at the 4K cell's parameters (``cfg_4k``) at ``fps``."""
+    import dataclasses
+
+    return dataclasses.replace(cfg_4k(levels).magnification, framerate=fps)
+
+
+def config4_params(fps):
+    """BASELINE config 4's magnification as ``bench.py:233-238`` sets it, in phase."""
+    from live_video_magnification_tpu_torch.models.params import (
+        MagnificationMode,
+        MagnificationParams,
+    )
+
+    return MagnificationParams(mode=MagnificationMode.PHASE, amplification=20, co_low=1.0,
+                               co_high=5.0, levels=4, framerate=fps)
+
+
+def render_ms(h, w, fps):
+    """ms a frame of ``SyntheticSource``'s render and the copy into a pooled
+    buffer, alone: over the first shift period (each distinct table looked up
+    once) and over the next 10 frames (cached tables, a strided copy)."""
+    from live_video_magnification_tpu_torch.engine.instrumentation import Instrumentation
+    from live_video_magnification_tpu_torch.engine.pool import FramePool
+    from live_video_magnification_tpu_torch.engine.queue import BoundedQueue
+    from live_video_magnification_tpu_torch.engine.source import SyntheticSource
+
+    src = SyntheticSource(FramePool(2), BoundedQueue(2), Instrumentation(), h, w, fps)
+    buf = np.empty((h, w, 3), np.uint8)
+
+    def run(lo, hi):
+        t0 = time.perf_counter()
+        for i in range(lo, hi):
+            np.copyto(buf, src._render(i))
+        return 1e3 * (time.perf_counter() - t0) / (hi - lo)
+
+    period = int(round(fps))
+    return dict(render_ms_first_period=run(0, period), render_ms=run(period, period + 10),
+                render_tables=len(src._looked_up))
+
+
+def consumer_copies_ms(torch, dev, h, w, oh, ow, reps=5):
+    """The consumer's copies a frame by CUDA events: the pooled (pageable) u8
+    frame to the card, and both panes back (two pageable D2H copies of the
+    processed size, as ``engine/processing.py::hwc_result``)."""
+    host = np.zeros((h, w, 3), np.uint8)
+    pane = torch.zeros((oh, ow, 3), dtype=torch.uint8, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        fn()
+        total = 0.0
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            start.record()
+            fn()
+            stop.record()
+            stop.synchronize()
+            total += start.elapsed_time(stop)
+        return total / reps
+
+    h2d = timed(lambda: torch.from_numpy(host).to(dev))
+    d2h = timed(lambda: [pane.to("cpu", copy=True) for _ in range(2)])
+    return dict(h2d_ms=h2d, d2h_ms=d2h, h2d_bytes=host.nbytes, d2h_bytes=2 * pane.numel())
+
+
+def live_expected(st, tl, hl, h, w, levels, processed):
+    """Exactly the f32 stencils of ``stencil_launches`` a processed frame;
+    every other count (bf16 arms, tail, halo) 0."""
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+
+    want = {k: 0 for k in launch_counts(st, tl, hl)}
+    want.update({k: v * processed for k, v in stencil_launches(h, w, levels).items()})
+    return want
+
+
+def recording_mailbox(keep=True):
+    """A LatestFrameMailbox that stamps every publish and, with ``keep``,
+    holds every published pair (the consumer check)."""
+    from live_video_magnification_tpu_torch.engine.mailbox import LatestFrameMailbox
+
+    class Recording(LatestFrameMailbox):
+        def __init__(self):
+            super().__init__()
+            self.pairs, self.times = [], []
+
+        def publish(self, frame):
+            if keep:
+                self.pairs.append(frame)
+            self.times.append(time.perf_counter())
+            super().publish(frame)
+
+    return Recording()
+
+
+def consumer_pass(dev, cfg, inputs, mailbox):
+    """The frames, pooled, on a Block queue that holds them all, through one
+    ``ProcessingChain`` until every frame is published. Returns (seconds,
+    the instrumentation snapshot, the clamped levels)."""
+    from live_video_magnification_tpu_torch.engine.config import AtomicConfig
+    from live_video_magnification_tpu_torch.engine.instrumentation import Instrumentation
+    from live_video_magnification_tpu_torch.engine.pool import FramePool
+    from live_video_magnification_tpu_torch.engine.processing import ProcessingChain
+    from live_video_magnification_tpu_torch.engine.queue import BoundedQueue, OverflowPolicy
+
+    n = len(inputs)
+    h, w = inputs[0].shape[:2]
+    pool = FramePool(n)
+    queue = BoundedQueue(n, OverflowPolicy.BLOCK)
+    for i, x in enumerate(inputs):
+        f = pool.acquire(h, w, 3)
+        np.copyto(f.data, x)
+        f.seq = i
+        queue.push(f)
+    instr = Instrumentation()
+    proc = ProcessingChain(queue, mailbox, AtomicConfig(cfg), instr, dev)
+    t0 = time.perf_counter()
+    proc.start()
+    try:
+        deadline = time.monotonic() + 120.0
+        while len(mailbox.times) < n and time.monotonic() < deadline:
+            time.sleep(0.005)
+    finally:
+        queue.stop()
+        proc.stop()
+    return time.perf_counter() - t0, instr.snapshot(), proc._chain._key.levels
+
+
+def engine_consumer_4k(torch, dev, st, tl, hl, h=2160, w=3840):
+    """``ProcessingChain`` alone on a Block ``BoundedQueue`` that holds
+    CONSUMER_FRAMES pooled 2160x3840 synthetic frames, twice: a timed pass
+    (the mailbox keeps the latest pair only) and a checked one, every
+    published pair bit for bit ``MagnificationChain.process`` of the same
+    frame (``hwc_result`` of both panes); launches in each; then a profile
+    of 4 frames of the consumer's work (the chain and both readbacks)."""
+    from live_video_magnification_tpu_torch.engine.instrumentation import Instrumentation
+    from live_video_magnification_tpu_torch.engine.pool import FramePool
+    from live_video_magnification_tpu_torch.engine.processing import hwc_result
+    from live_video_magnification_tpu_torch.engine.queue import BoundedQueue
+    from live_video_magnification_tpu_torch.engine.source import SyntheticSource
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.models.params import ProcessorConfig
+
+    n = CONSUMER_FRAMES
+    cfg = ProcessorConfig(magnification=live_params(6, 30.0))
+    t0 = time.perf_counter()
+    src = SyntheticSource(FramePool(2), BoundedQueue(2), Instrumentation(), h, w, 30.0)
+    inputs = [np.array(src._render(i)) for i in range(n)]
+    render_s = time.perf_counter() - t0
+    del src
+    passes = []
+    for keep in (False, True):
+        mailbox = recording_mailbox(keep)
+        reset_counts(st, tl, hl)
+        wall, s, levels = consumer_pass(dev, cfg, inputs, mailbox)
+        launched = launch_counts(st, tl, hl)
+        if len(mailbox.times) != n or s.proc_errors or s.processed != n:
+            raise AssertionError(f"engine_consumer_4k: {len(mailbox.times)} of {n} published, "
+                                 f"{s.proc_errors} processing errors")
+        want = live_expected(st, tl, hl, h, w, levels, n)
+        if launched != want:
+            raise AssertionError(f"engine_consumer_4k launches {launched}, expected {want}")
+        passes.append(dict(pairs_held=keep, ms_per_frame=1e3 * wall / n,
+                           steady_ms_per_frame=1e3 * (mailbox.times[-1] - mailbox.times[1])
+                           / (n - 2)))
+    chain = MagnificationChain(device=dev)
+    for i, (pair, x) in enumerate(zip(mailbox.pairs, inputs)):
+        p, o = (hwc_result(t) for t in chain.process(x, cfg))
+        if pair.processed.seq != i or not (np.array_equal(pair.processed.data, p)
+                                           and np.array_equal(pair.original.data, o)):
+            raise AssertionError(f"engine_consumer_4k: pair {i} is not the chain's frame")
+        if i > 0 and np.array_equal(p, x):
+            raise AssertionError(f"engine_consumer_4k: frame {i} not magnified")
+    del mailbox, pair
+    prof = profile_run(torch, lambda: [hwc_result(t) for x in inputs[:4]
+                                       for t in chain.process(x, cfg)], 4)
+    row = dict(phase="engine_consumer_4k", card=torch.cuda.get_device_name(dev), shape=[h, w],
+               levels=levels, frames=n, ms_per_frame=passes[0]["ms_per_frame"],
+               steady_ms_per_frame=passes[0]["steady_ms_per_frame"], passes=passes,
+               render_s=render_s,
+               stencil_launches_per_frame={k: v // n for k, v in launched.items() if v},
+               bit_equal_to_chain=True, proc_errors=0,
+               **consumer_copies_ms(torch, dev, h, w, h, w))
+    log(**row)
+    log(phase="profile_engine_consumer_4k", card=row["card"], **prof)
+    return row
+
+
+def live_run(torch, dev, st, tl, hl, name, h, w, fps, seconds, mag, as_camera, roi=False,
+             native=False):
+    """One PlaybackController run of a paced synthetic source, as bench.py's
+    bench_streaming drives it (stats polled at 4 Hz, steady fps over the
+    second half), with a DisplayLoop polling the mailbox at 120 Hz."""
+    from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+    from live_video_magnification_tpu_torch.engine.display import DisplayLoop
+    from live_video_magnification_tpu_torch.engine.native import NativeFramePoolAdapter
+    from live_video_magnification_tpu_torch.engine.pool import FramePool
+    from live_video_magnification_tpu_torch.models.chain import preprocess_geometry
+
+    saved = os.environ.get("LVMT_NATIVE")
+    os.environ["LVMT_NATIVE"] = "1" if native else "0"
+    try:
+        ctrl = PlaybackController(device=dev)
+    finally:
+        if saved is None:
+            os.environ.pop("LVMT_NATIVE")
+        else:
+            os.environ["LVMT_NATIVE"] = saved
+    want_pool = NativeFramePoolAdapter if native else FramePool
+    if not isinstance(ctrl._pool, want_pool):
+        raise AssertionError(f"{name}: transport {type(ctrl._pool).__name__}, "
+                             f"expected {want_pool.__name__}")
+    ctrl.set_magnification(mag)
+    if roi:
+        ctrl.set_downscale(2)
+    display = DisplayLoop(ctrl.mailbox, ctrl.instr, render=None, poll_hz=120.0)
+    try:
+        if not ctrl.open_synthetic(h=h, w=w, fps=fps, as_camera=as_camera):
+            raise AssertionError(f"{name}: the synthetic source did not open")
+        if roi:
+            ctrl.set_roi(0.25, 0.25, 0.5, 0.5)
+        proc = ctrl._chain
+        reset_counts(st, tl, hl)
+        ctrl.play()
+        display.start()
+        t0 = time.monotonic()
+        mid, depths, sampled, not_magnified = None, [], 0, []
+        while time.monotonic() - t0 < seconds:
+            time.sleep(0.25)
+            s = ctrl.stats()
+            depths.append(s.queue_depth)
+            if mid is None and time.monotonic() - t0 >= seconds / 2:
+                mid = (s.processed, time.monotonic())
+            pair = ctrl.mailbox.latest()
+            if pair is not None and pair.processed.seq > 0:
+                sampled += 1
+                if np.array_equal(pair.processed.data, pair.original.data):
+                    not_magnified.append(pair.processed.seq)
+        s = ctrl.stats()
+        t_end = time.monotonic()
+    finally:
+        display.stop()
+        ctrl.close()
+    final = ctrl.instr.snapshot()  # after the teardown: the in-flight frame included
+    key = proc._chain._key
+    oh, ow = preprocess_geometry(ctrl.config_snapshot().preprocess, h, w)[4:]
+    launched = launch_counts(st, tl, hl)
+    want = live_expected(st, tl, hl, oh, ow, key.levels, final.processed)
+    row = dict(phase=name, card=torch.cuda.get_device_name(dev), source=[h, w], fps=fps,
+               processed_shape=[oh, ow], levels=key.levels, camera_semantics=as_camera,
+               transport=type(ctrl._pool).__name__, seconds=seconds,
+               steady_fps=(s.processed - mid[0]) / (t_end - mid[1]), fps_ema=s.process_fps,
+               latency_ms_mean=s.latency_ms_mean, latency_ms_p95=s.latency_ms_p95,
+               captured=final.captured, processed=final.processed, source_drops=s.source_drops,
+               displayed=final.displayed, display_skipped=final.display_skipped,
+               queue_depth_mean=float(np.mean(depths)), queue_depth_max=max(depths),
+               proc_errors=final.proc_errors, read_errors=final.read_errors,
+               sampled_frames=sampled, not_magnified=not_magnified,
+               stencil_launches_per_frame={k: v / max(final.processed, 1)
+                                           for k, v in launched.items() if v},
+               **render_ms(h, w, fps), **consumer_copies_ms(torch, dev, h, w, oh, ow))
+    log(**row)
+    if final.proc_errors or final.read_errors:
+        raise AssertionError(f"{name}: {final.proc_errors} processing and "
+                             f"{final.read_errors} read errors")
+    if launched != want:
+        raise AssertionError(f"{name}: launches {launched}, expected {want}")
+    if final.processed < 2 or not sampled or not_magnified:
+        raise AssertionError(f"{name}: {final.processed} processed, {sampled} sampled, "
+                             f"frames not magnified {not_magnified}")
+    return row
+
+
+def live_phases(torch, dev, st, tl, hl):
+    """live_4k30, live_1080p60 and config 4 on both transports."""
+    rows = [live_run(torch, dev, st, tl, hl, "live_4k30", 2160, 3840, 30.0, LIVE_S,
+                     live_params(6, 30.0), as_camera=True),
+            live_run(torch, dev, st, tl, hl, "live_1080p60", 1080, 1920, 60.0, LIVE_S,
+                     live_params(6, 60.0), as_camera=True)]
+    for native in (False, True):
+        rows.append(live_run(torch, dev, st, tl, hl, "live_1080p60_roi", 1080, 1920, 60.0,
+                             LIVE_ROI_S, config4_params(60.0), as_camera=False, roi=True,
+                             native=native))
+    return rows
+
+
+def record_export_1080p(torch, dev, st, tl, hl, h=1080, w=1920):
+    """About RECORD_S of a synthetic camera at 1080x1920 recorded through
+    ``start_recording`` / ``stop_recording``, then exported by ``Exporter``
+    (split left-right) into an in-memory writer; every written frame bit
+    for bit a fresh chain's frames composed by ``compose``."""
+    import live_video_magnification_tpu_torch.export.exporter as exporter
+    from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+    from live_video_magnification_tpu_torch.engine.processing import hwc_result
+    from live_video_magnification_tpu_torch.export.sources import BufferExportFrameSource
+    from live_video_magnification_tpu_torch.export.types import (
+        ExportPhase,
+        ExportRequest,
+        SplitMode,
+    )
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+
+    fps = 30.0
+    ctrl = PlaybackController(device=dev)
+    try:
+        ctrl.set_magnification(live_params(6, fps))
+        if not ctrl.open_synthetic(h=h, w=w, fps=fps, as_camera=True):
+            raise AssertionError("record_export_1080p: the synthetic camera did not open")
+        ctrl.play()
+        buf = ctrl.start_recording()
+        time.sleep(RECORD_S)
+        frames = ctrl.stop_recording()
+        cfg = ctrl.config_snapshot()
+    finally:
+        ctrl.close()
+    stats = ctrl.instr.snapshot()
+    if not frames or stats.proc_errors or stats.read_errors or buf.limit_reached:
+        raise AssertionError(f"record_export_1080p: {len(frames)} frames recorded, "
+                             f"{stats.proc_errors} processing / {stats.read_errors} read errors")
+
+    written = []
+
+    class MemoryWriter:
+        def write(self, canvas):
+            written.append(canvas.copy())
+
+        def release(self):
+            pass
+
+    def memory_writer(fmt, path, fps_, size_wh):
+        return MemoryWriter(), path, "memory"
+
+    saved = exporter.open_writer
+    exporter.open_writer = memory_writer
+    try:
+        reset_counts(st, tl, hl)
+        exp = exporter.Exporter(device=dev)
+        t0 = time.perf_counter()
+        exp.start(BufferExportFrameSource(frames), ExportRequest(
+            config=cfg, output_path="record_export_1080p.avi", split=SplitMode.LEFT_RIGHT))
+        exp.join(timeout=300.0)
+        seconds = time.perf_counter() - t0
+    finally:
+        exporter.open_writer = saved
+    p = exp.progress()
+    launched = launch_counts(st, tl, hl)
+    if p.phase is not ExportPhase.DONE or not p.frames_done == len(written) == len(frames):
+        raise AssertionError(f"record_export_1080p: export {p.phase.value} ({p.error}), "
+                             f"{p.frames_done} of {len(frames)}")
+    chain = MagnificationChain(device=dev)
+    for i, f in enumerate(frames):
+        processed, original = (hwc_result(t) for t in chain.process(f, cfg))
+        if i == 0:
+            want = live_expected(st, tl, hl, h, w, chain._key.levels, len(frames))
+            if launched != want:
+                raise AssertionError(f"record_export_1080p: launches {launched}, "
+                                     f"expected {want}")
+        ref = exporter.compose(original, processed, SplitMode.LEFT_RIGHT, False)
+        if not np.array_equal(written[i], ref):
+            raise AssertionError(f"record_export_1080p: written frame {i} is not the chain's")
+    row = dict(phase="record_export_1080p", card=torch.cuda.get_device_name(dev), shape=[h, w],
+               record_seconds=RECORD_S, frames=len(frames), export_seconds=seconds,
+               export_fps=len(frames) / seconds, canvas=list(written[0].shape),
+               bit_equal_to_chain=True, proc_errors=0, read_errors=0,
+               stencil_launches_per_frame={k: v / len(frames) for k, v in launched.items() if v})
+    log(**row)
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2307,6 +2704,9 @@ def main() -> int:
     slice_card_vs_cpu_modes(torch, dev, st, tl, hl)
     slice_card_vs_cpu_time_parallel(torch, dev, st, tl, hl)
     sharded = slice_4k_sharded(torch, dev, st, tl, hl)
+    engine_consumer_4k(torch, dev, st, tl, hl)
+    live_phases(torch, dev, st, tl, hl)
+    record_export_1080p(torch, dev, st, tl, hl)
 
     path = lambda name: " ".join(f"{k}={v}" for k, v in CONFIGS[name][0].items()) or "defaults"
     level0 = lambda rows, k: next(r for r in rows if r["kernel"] == k and r["level"] == 0

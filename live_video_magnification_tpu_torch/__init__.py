@@ -19,16 +19,22 @@ Layering (lower layers never import higher ones):
                   bring-up (``time_shard.py``, the boundary step between
                   time shards, imports only torch: models/ use it)
     export/       sequential clip processing with checkpoint/resume, the
-                  export types and the pane composition
+                  export types, the pane composition, the recording buffer,
+                  the export frame sources and the ``Exporter`` worker
+    engine/       the host streaming runtime: sources, pool, Block/Drop
+                  queue, the processing consumer, the mailbox,
+                  instrumentation, the playback controller and the native
+                  C++ transport's ctypes adapter
     io/           video file decode and encode (OpenCV, imported when called)
     convert.py    carried state and dynamic parameters from the JAX package
-    cli.py        the ``info`` and ``magnify`` commands
+    cli.py        the ``info``, ``magnify``, ``live``, ``record`` and
+                  ``cameras`` commands
 
 Ported so far: all three modes through the chain, ClipProcessor and the
 CLI's offline commands (sequential, ``--time-parallel`` and
-``--distributed``), the lane-sharded phase step and the time mesh. The
-engine, the other commands and the rest of parallel/ are still to come
-(ROADMAP.md).
+``--distributed``), the lane-sharded phase step, the time mesh, the live
+engine and the record-and-export flow. The GL present path, the GUI, the
+``bench`` command and the rest of parallel/ are still to come (ROADMAP.md).
 """
 
 __version__ = "0.1.0"

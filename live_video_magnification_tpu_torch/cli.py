@@ -2,27 +2,38 @@
 
     python -m live_video_magnification_tpu_torch.cli info <video>
     python -m live_video_magnification_tpu_torch.cli magnify <in> <out> [params]
+    python -m live_video_magnification_tpu_torch.cli live [--camera N | --video F] [params]
+    python -m live_video_magnification_tpu_torch.cli record <out> [--camera N] [params]
+    python -m live_video_magnification_tpu_torch.cli cameras
 
-The counterpart of the reference package's ``cli.py`` for its offline
-commands: ``info`` prints the container's frame count, size, rate and the
-largest pyramid depth; ``magnify`` decodes a file, runs the frames through
-``ClipProcessor`` in chunks (motion, colour or phase; frame by frame, or
-each chunk at once under ``--time-parallel``) and encodes the result at
-constant host memory, with checkpoints and resume.
+The counterpart of the reference package's ``cli.py``: ``info`` prints the
+container's frame count, size, rate and the largest pyramid depth;
+``magnify`` decodes a file, runs the frames through ``ClipProcessor`` in
+chunks (motion, colour or phase; frame by frame, or each chunk at once under
+``--time-parallel``) and encodes the result at constant host memory, with
+checkpoints and resume. ``live`` runs the streaming engine
+(``engine/controller.py::PlaybackController``: a camera, a file or, when
+neither is given, a synthetic source -> queue -> chain -> mailbox) and prints
+its stats line; ``record`` records a camera (or a synthetic camera) losslessly
+into RAM and then exports it magnified through ``export/exporter.py::Exporter``;
+``cameras`` lists the capture devices.
 
 Parameters are taken in UI units (Hz bands, percent sliders) and mapped
 through the single UI <-> algorithm mapping (``models/params.py``), as the
 reference's panels do. ``--device`` (``cuda`` by default, or ``cpu``) picks
 where the frames are processed: without a card, ``cuda`` fails rather than
-falling back to the CPU. Decoding and encoding need OpenCV (cv2).
+falling back to the CPU. Decoding and encoding need OpenCV (cv2); so do file
+and camera sources, while ``live`` and ``record`` on the synthetic source
+need it only for the exported file.
 
 ``magnify --distributed`` shards each chunk's time axis over every device of
 every process (``parallel/batch_export.py``); start one process per host or
 card with COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID set
 (``parallel/distributed.py``), or one process alone for its own devices.
 
-Not ported yet (ROADMAP.md): the ``live``, ``record``, ``cameras`` and
-``bench`` commands.
+Not ported yet (ROADMAP.md): ``live --gl`` / ``--view`` (the GL present path,
+queue 1 item 3), which the port refuses with an error, and the ``bench``
+command (the port's bench is the "port bench" item of "What comes next").
 """
 
 from __future__ import annotations
@@ -334,6 +345,157 @@ def _concat_resumed_parts(output: str, fps: float | None = None) -> None:
     print(f"auto-concatenated {len(ordered)} parts into {final}", file=sys.stderr)
 
 
+GL_NOT_PORTED = ("live --gl / --view need the GL present path (engine/gl_present.py), "
+                 "which is not ported yet (ROADMAP.md, queue 1 item 3)")
+
+
+def _controller(args):
+    """(a PlaybackController on ``--device`` set to the CLI's grayscale and
+    magnification parameters, that configuration), or (None, None) after
+    printing why not (no card)."""
+    from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+
+    try:
+        ctrl = PlaybackController(device=args.device)
+    except RuntimeError as e:
+        print(f"error: {e} (here: --device cpu)", file=sys.stderr)
+        return None, None
+    cfg = _config_from_args(args, 30.0)
+    ctrl.set_grayscale(cfg.grayscale)
+    ctrl.set_magnification(cfg.magnification)
+    return ctrl, cfg
+
+
+def cmd_live(args) -> int:
+    if args.gl or args.view is not None:
+        print(f"error: {GL_NOT_PORTED}", file=sys.stderr)
+        return 2
+    _apply_fast_mode(args)
+    from live_video_magnification_tpu_torch.engine.instrumentation import (
+        camera_health,
+        file_health,
+    )
+
+    ctrl, _ = _controller(args)
+    if ctrl is None:
+        return 1
+    try:
+        if args.camera is not None:
+            ok = ctrl.open_camera(args.camera)
+        elif args.video is not None:
+            ok = ctrl.open_file(args.video)
+        else:
+            ok = ctrl.open_synthetic(h=args.size[0], w=args.size[1], fps=30.0)
+        if not ok:
+            print("failed to open source", file=sys.stderr)
+            return 1
+        if args.playback_fps is not None and not ctrl.is_camera:
+            # file-source pacing override (reference StatusStrip.cpp:122-158)
+            ctrl.set_playback_fps(args.playback_fps)
+        ctrl.play()
+        end = time.monotonic() + args.duration
+        while time.monotonic() < end:
+            time.sleep(min(0.25, max(0.0, end - time.monotonic())))
+            s = ctrl.stats()
+            health = (
+                camera_health(s.drop_fraction) if ctrl.is_camera
+                else file_health(s.process_fps, ctrl.reported_fps())
+            )
+            print(
+                f"\rfps={s.process_fps:6.1f} latency={s.latency_ms_mean:5.1f}ms "
+                f"p95={s.latency_ms_p95:5.1f}ms q={s.queue_depth} drops={s.source_drops} "
+                f"errors={s.proc_errors} [{health}]   ",
+                end="", file=sys.stderr,
+            )
+    except KeyboardInterrupt:
+        pass
+    finally:
+        print(file=sys.stderr)
+        ctrl.close()
+    return 0
+
+
+def cmd_record(args) -> int:
+    """Lossless camera recording -> offline magnified export
+    (reference CameraSource.cpp:70-80 + MainWindow.cpp:576-585 flow)."""
+    _apply_fast_mode(args)
+    from live_video_magnification_tpu_torch.export.exporter import Exporter
+    from live_video_magnification_tpu_torch.export.sources import BufferExportFrameSource
+    from live_video_magnification_tpu_torch.export.types import (
+        ExportFormat,
+        ExportPhase,
+        ExportRequest,
+        SplitMode,
+    )
+
+    ctrl, cfg = _controller(args)
+    if ctrl is None:
+        return 1
+    try:
+        if args.camera is not None:
+            ok = ctrl.open_camera(args.camera)
+        else:
+            ok = ctrl.open_synthetic(h=args.size[0], w=args.size[1], fps=30.0,
+                                     as_camera=True)
+        if not ok:
+            print("failed to open source", file=sys.stderr)
+            return 1
+        ctrl.play()
+        buf = ctrl.start_recording(max_bytes=args.max_bytes)
+        if buf is None:
+            print("recording unavailable (no camera-kind source)", file=sys.stderr)
+            return 1
+        end = time.monotonic() + args.duration
+        try:
+            while time.monotonic() < end and not buf.closed:
+                time.sleep(0.1)
+                print(f"\rREC {buf.frame_count} frames "
+                      f"{buf.byte_count / 1e6:.1f} MB", end="", file=sys.stderr)
+        except KeyboardInterrupt:
+            pass
+        if buf.limit_reached:
+            print("\nbyte cap reached — recording auto-stopped", file=sys.stderr)
+        frames = ctrl.stop_recording()
+    finally:
+        ctrl.close()
+    print(f"\ncaptured {len(frames)} frames", file=sys.stderr)
+    if not frames:
+        print("nothing recorded", file=sys.stderr)
+        return 1
+
+    fmt = {"mp4": ExportFormat.MP4_H264, "avi": ExportFormat.AVI_MJPG,
+           "mkv": ExportFormat.MKV_FFV1}[args.format]
+    req = ExportRequest(config=cfg, output_path=args.output,
+                        file_fps=args.file_fps or 30.0, split=SplitMode(args.split),
+                        text_overlay=args.labels, format=fmt)
+    exp = Exporter(device=ctrl.device)
+    exp.start(BufferExportFrameSource(frames), req)
+    while True:
+        p = exp.progress()
+        if p.phase in (ExportPhase.DONE, ExportPhase.FAILED, ExportPhase.ABORTED):
+            break
+        print(f"\rexporting {p.frames_done}/{p.frames_total}", end="", file=sys.stderr)
+        time.sleep(0.2)
+    exp.join(timeout=30.0)
+    p = exp.progress()
+    if p.phase is not ExportPhase.DONE:
+        print(f"\nexport {p.phase.value}: {p.error}", file=sys.stderr)
+        return 1
+    print(f"\nwrote {p.frames_done} frames to {args.output}", file=sys.stderr)
+    return 0
+
+
+def cmd_cameras(_args) -> int:
+    from live_video_magnification_tpu_torch.engine.source import enumerate_cameras
+
+    cams = enumerate_cameras()
+    if not cams:
+        print("no cameras found")
+    for idx, name in cams:
+        print(f"{idx}: {name}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m live_video_magnification_tpu_torch.cli",
                                  description=__doc__,
@@ -365,6 +527,37 @@ def main(argv=None) -> int:
                         "uses its own devices)")
     _add_mag_args(p)
     p.set_defaults(fn=cmd_magnify)
+
+    p = sub.add_parser("live", help="streaming pipeline with live stats")
+    p.add_argument("--camera", type=int, default=None)
+    p.add_argument("--video", default=None)
+    p.add_argument("--size", type=int, nargs=2, default=(480, 640))
+    p.add_argument("--duration", type=float, default=10.0)
+    p.add_argument("--playback-fps", type=float, default=None,
+                   help="override file-source playback pacing (ignored for cameras)")
+    p.add_argument("--gl", action="store_true", help="not ported yet: refused")
+    p.add_argument("--view", default=None,
+                   choices=["processed", "original", "side-by-side", "top-bottom"],
+                   help="--gl view mode; not ported yet: refused")
+    _add_mag_args(p)
+    p.set_defaults(fn=cmd_live)
+
+    p = sub.add_parser("record", help="record (camera/synthetic) then export magnified")
+    p.add_argument("output")
+    p.add_argument("--camera", type=int, default=None)
+    p.add_argument("--size", type=int, nargs=2, default=(480, 640),
+                   help="synthetic source size when no camera")
+    p.add_argument("--duration", type=float, default=5.0, help="record seconds")
+    p.add_argument("--max-bytes", type=int, default=None, help="RAM cap (default 8 GB)")
+    p.add_argument("--file-fps", type=float, default=None)
+    p.add_argument("--format", default="mp4", choices=["mp4", "avi", "mkv"])
+    p.add_argument("--split", default="none", choices=["none", "left-right", "top-bottom"])
+    p.add_argument("--labels", action="store_true")
+    _add_mag_args(p)
+    p.set_defaults(fn=cmd_record)
+
+    p = sub.add_parser("cameras", help="enumerate capture devices")
+    p.set_defaults(fn=cmd_cameras)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -1,1 +1,2 @@
-"""Clip processing with carried state and checkpoint/resume."""
+"""Clip processing with carried state and checkpoint/resume, and the
+record-and-export worker (``exporter.Exporter``, ``recording``, ``sources``)."""

@@ -10,6 +10,7 @@ before encoding into a larger one after it).
 import math
 import os
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -295,3 +296,48 @@ def test_concat_resumed_parts_keeps_everything_without_a_full_manifest(tmp_path,
     tcli._concat_resumed_parts(str(out))
     assert "missing part" in capsys.readouterr().err
     assert out.read_bytes() == b"BASE" and (tmp_path / "clip.from8.avi").exists()
+
+
+# ---------------------------------------------------------------- the streaming commands
+
+
+def test_live_runs_the_synthetic_source_on_the_cpu(capsys):
+    assert tcli.main(["live", "--size", "48", "64", "--duration", "1", "--device", "cpu",
+                      "--mode", "phase", "--levels", "2"]) == 0
+    err = capsys.readouterr().err
+    assert "fps=" in err and "errors=0" in err
+    assert not [t for t in threading.enumerate() if t.name == "ProcessingChain"]
+
+
+def test_live_and_record_fail_without_a_card(monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tcli.main(["live", "--size", "48", "64", "--duration", "1"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    out = str(tmp_path / "r.avi")
+    assert tcli.main(["record", out, "--size", "48", "64", "--duration", "1"]) == 1
+    assert "no CUDA device" in capsys.readouterr().err and not os.path.exists(out)
+
+
+def test_record_writes_the_recording_magnified(tmp_path, capsys):
+    out = str(tmp_path / "out.avi")
+    assert tcli.main(["record", out, "--duration", "1", "--size", "48", "64",
+                      "--device", "cpu", "--format", "avi", "--split", "left-right"]) == 0
+    err = capsys.readouterr().err
+    n = int(err.split("captured ")[1].split()[0])
+    assert n >= 5 and f"wrote {n} frames to {out}" in err
+    frames = _read(out)
+    assert frames.shape == (n, 48, 128, 3)
+
+
+def test_cameras_lists_capture_devices(capsys):
+    assert tcli.main(["cameras"]) == 0
+    out = capsys.readouterr().out
+    assert out == "no cameras found\n" or all(": " in ln for ln in out.splitlines())
+
+
+@pytest.mark.parametrize("flags", [["--gl"], ["--view", "side-by-side"]])
+def test_live_gl_is_refused_with_the_roadmap_item(flags, capsys):
+    assert tcli.main(["live", "--device", "cpu", "--duration", "1"] + flags) == 2
+    err = capsys.readouterr().err
+    assert "engine/gl_present.py" in err and "ROADMAP.md, queue 1 item 3" in err
+    assert not [t for t in threading.enumerate() if t.name == "ProcessingChain"]

@@ -2,8 +2,10 @@
 (with their bf16 arms) against their plain versions, the phase step
 (under each tail configuration, each build and the fast flags) and chain on
 the card against the CPU, the motion and colour modes (step, chain and
-ClipProcessor) on the card against the CPU, and the time-parallel clip path
-of all three modes against the sequential one and the CPU.
+ClipProcessor) on the card against the CPU, the time-parallel clip path
+of all three modes against the sequential one and the CPU, and the live
+engine (``PlaybackController``'s stencil launches) and the ``Exporter`` on the
+card.
 
 Marked ``cuda``; each test decides inside itself whether a card exists and
 skips otherwise. They import neither JAX nor cv2, so they run where only torch
@@ -902,3 +904,88 @@ def test_time_mesh_across_cards_matches_the_unsharded_path(cuda):
     devices = [torch.device("cuda", i) for i in (0, 0, 1, 1)]
     sharded, unsharded, _, _ = _time_mesh_runs("phase", 6, 30.0, 8, devices)
     assert int(np.abs(sharded.astype(np.int16) - unsharded.astype(np.int16)).max()) <= 1
+
+
+# ---------------------------------------------------------------- the live engine and the Exporter
+
+
+def _phase_cfg(levels=6, fps=30.0):
+    from live_video_magnification_tpu_torch.models.params import (
+        MagnificationMode,
+        MagnificationParams,
+        ProcessorConfig,
+    )
+
+    return ProcessorConfig(magnification=MagnificationParams(
+        mode=MagnificationMode.PHASE, amplification=20.0, co_wavelength=40.0, co_low=1.0,
+        co_high=5.0, levels=levels, framerate=fps))
+
+
+def test_controller_on_the_card_launches_the_stencils_of_every_frame(cuda):
+    """PlaybackController on the card, a lossless 1080x1920 synthetic source,
+    phase levels 6: every frame processed, none an error, and exactly the
+    stencil launches of ``ops/riesz.py::stencil_launches`` a frame."""
+    import time
+
+    from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+
+    n = 6
+    ctrl = PlaybackController(device="cuda")
+    try:
+        assert ctrl.device.type == "cuda"
+        ctrl.set_magnification(_phase_cfg().magnification)
+        assert ctrl.open_synthetic(h=1080, w=1920, fps=30.0, n_frames=n)
+        for k in stencils.LAUNCHES:
+            stencils.LAUNCHES[k] = 0
+        ctrl.play()
+        end = time.monotonic() + 20.0
+        while time.monotonic() < end and ctrl.stats().processed + ctrl.stats().proc_errors < n:
+            time.sleep(0.02)
+        s = ctrl.stats()
+        pair = ctrl.mailbox.latest()
+    finally:
+        ctrl.close()
+    assert (s.processed, s.proc_errors, s.read_errors) == (n, 0, 0)
+    assert dict(stencils.LAUNCHES) == {k: v * n for k, v in stencil_launches(1080, 1920, 6).items()}
+    assert pair.processed.data.shape == (1080, 1920, 3) and pair.processed.seq == n - 1
+    assert not np.array_equal(pair.processed.data, pair.original.data)
+
+
+def test_exporter_on_the_card_writes_the_chains_frames(cuda, monkeypatch):
+    """Exporter(device="cuda") over a recording, split left-right, with an
+    in-memory writer: bit for bit MagnificationChain + compose on the card."""
+    import live_video_magnification_tpu_torch.export.exporter as texporter
+    from live_video_magnification_tpu_torch.engine.processing import hwc_result
+    from live_video_magnification_tpu_torch.export.sources import BufferExportFrameSource
+    from live_video_magnification_tpu_torch.export.types import (
+        ExportPhase,
+        ExportRequest,
+        SplitMode,
+    )
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    written = []
+
+    class Memory:
+        def write(self, canvas):
+            written.append(canvas.copy())
+
+        def release(self):
+            pass
+
+    monkeypatch.setattr(texporter, "open_writer", lambda fmt, path, fps, size: (Memory(), path, "m"))
+    frames = list(moving_clip(5, 1080, 1920, seed=6))
+    cfg = _phase_cfg()
+    exp = texporter.Exporter(device="cuda")
+    exp.start(BufferExportFrameSource(frames), ExportRequest(
+        config=cfg, output_path="memory.avi", split=SplitMode.LEFT_RIGHT))
+    exp.join(timeout=60.0)
+    p = exp.progress()
+    assert p.phase is ExportPhase.DONE and p.frames_done == 5, p.error
+    chain = MagnificationChain(device=cuda)
+    for i, f in enumerate(frames):
+        processed, original = (hwc_result(x) for x in chain.process(f, cfg))
+        want = texporter.compose(original, processed, SplitMode.LEFT_RIGHT, False)
+        np.testing.assert_array_equal(written[i], want, err_msg=f"frame {i}")

@@ -146,9 +146,13 @@ def test_pyramid_build_and_collapse_match_reference(h, w, levels):
 
 
 # The port's file I/O needs cv2, which a GPU host may lack: these modules
-# import it inside the calls that use it, and nothing else imports it at all.
+# import it inside the calls that use it (decode and encode, the file and
+# camera sources, the HighGUI renderer), and nothing else imports it at all.
 CV2_AT_CALL = {"live_video_magnification_tpu_torch/io/video.py",
-               "live_video_magnification_tpu_torch/export/exporter.py"}
+               "live_video_magnification_tpu_torch/export/exporter.py",
+               "live_video_magnification_tpu_torch/export/sources.py",
+               "live_video_magnification_tpu_torch/engine/source.py",
+               "live_video_magnification_tpu_torch/engine/display.py"}
 
 
 def test_port_imports_no_jax_and_nothing_of_the_reference_package():
