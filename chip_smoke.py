@@ -62,7 +62,8 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      and every exchange of the 4K sharded frame; timed at those shapes by
      events and by graph replay, with the bound's share of each;
   8. the lane-sharded phase step (parallel/riesz_sharded.py, every halo
-     exchange through K10) at 2160x3840, levels=6, 6 frames, tail mxu: a
+     exchange through K10) at 2160x3840, levels=6, the 4K clip's first 6
+     frames, tail mxu: a
      (1,4) mesh of cuda:0 repeated (virtual shards), and a mesh of 1 with the
      default plan and forced sharded; frames against the unsharded step's
      (1 LSB; mesh of 1 bit-equal), K10 launches a frame as derived from the
@@ -110,6 +111,18 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      this script (``--rank``) at 1080x1920 phase, 4 shards each (NCCL on
      two cards where there are two, else gloo on one), their frames bit
      for bit those of one process's 8 virtual shards;
+ 11b. the row-sharded steps (``parallel/row_sharded.py`` through
+     ``parallel/sharding.py::build_sharded_step``) on virtual shards of the
+     card: motion and colour at 2160x3840 at their defaults, two streams
+     on a (2,2) mesh and one on (1,4), and phase at 768x1366 levels 6 on
+     (1,4) (the fallback for a width that does not lane-shard), ROW_FRAMES
+     frames each, beside the unsharded step on the same frames in two
+     passes (the second reversed): ms/frame, peak memory, frames against
+     the unsharded step (phase and motion bit for bit, colour within one
+     LSB, max LSB and pixels differing), launches (phase exactly
+     ``row_stencil_launches(plan)`` a frame and stream and no K10; motion
+     and colour none of K1-K10); the same over the real cards when there
+     are two or more, with its ms/frame over one card's unsharded step;
  12. the live engine (``engine/*``, phase under the default flags): the
      consumer alone (``engine_consumer_4k``: ``ProcessingChain`` on a Block
      queue holding 16 pooled 2160x3840 synthetic frames, each published pair
@@ -131,7 +144,8 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      frames composed by ``compose``.
 
 The second-to-last line is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}. Any failed check raises and exits non-zero.
+{"ok": true, "device": {...}}; every line before them carries the seconds
+since the start (``elapsed_s``). Any failed check raises and exits non-zero.
 """
 
 from __future__ import annotations
@@ -235,10 +249,15 @@ TAIL_MAIN_PATH = {"riesz_phase_df2_fused": "phase_fused", "riesz_amplify_fused":
 HALO_SOURCE = "live_video_magnification_tpu_torch/ops/hopper/csrc/halo.cu"
 HALO_REPLACES = "live_video_magnification_tpu/parallel/halo.py:152"
 SHARDED_TAIL = "mxu"  # the tail of the sharded runs: K6 on every sharded level
+SHARDED_FRAMES = 6   # of the 4K clip, for the lane-sharded cell
+
+
+_T0 = time.perf_counter()
 
 
 def log(**kw) -> None:
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started."""
+    print(json.dumps({**kw, "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -2222,16 +2241,15 @@ def sharded_runs(torch, frames, levels, ref, modules, hl, configs, phase, baseli
     return runs
 
 
-def slice_4k_sharded(torch, dev, st, tl, hl, h=2160, w=3840, t=6):
+def slice_4k_sharded(torch, dev, st, tl, hl, frames_4k):
     """The lane-sharded step at 4K, levels=6, on virtual shards of one card,
-    then on real cards when there are two or more."""
-    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
-
+    then on real cards when there are two or more; ``frames_4k``: the first
+    SHARDED_FRAMES frames of the 4K clip, [T, H, W, 3] u8."""
     levels = 6
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    frames = torch.from_numpy(np.ascontiguousarray(
-        moving_clip(t, h, w, seed=SEED + 11).transpose(0, 3, 1, 2)))
+    frames = torch.from_numpy(np.ascontiguousarray(frames_4k.transpose(0, 3, 1, 2)))
+    t = len(frames)
     t0 = time.perf_counter()
     ref = run_unsharded(torch, dev, frames, levels, SHARDED_TAIL)
     log(phase="slice_4k_sharded_reference", tail=SHARDED_TAIL, frames=t,
@@ -2251,6 +2269,189 @@ def slice_4k_sharded(torch, dev, st, tl, hl, h=2160, w=3840, t=6):
     else:
         log(phase="slice_sharded_multi_gpu", skipped="one CUDA device")
     return runs
+
+
+# ---------------------------------------------------------------- the row-sharded steps
+
+ROW_CELLS = (  # (name, mode, h, w, levels, meshes as (name, shape, batch))
+    ("motion_4k", "laplace", 2160, 3840, None, (("virtual_2x2", (2, 2), 2),
+                                                 ("virtual_1x4", (1, 4), 1))),
+    ("color_4k", "color", 2160, 3840, None, (("virtual_2x2", (2, 2), 2),
+                                              ("virtual_1x4", (1, 4), 1))),
+    ("phase_768x1366", "phase", 768, 1366, 6, (("virtual_1x4", (1, 4), 1),)),
+)
+ROW_FRAMES = 6
+
+
+def row_streams(frames, batch):
+    """``batch`` streams of [T, 3, H, W] u8 from one host clip [T, H, W, 3]:
+    stream b starts b frames later and wraps, so no two streams show the
+    same frame at a step."""
+    import torch
+
+    tchw = np.ascontiguousarray(frames.transpose(0, 3, 1, 2))
+    t = len(tchw)
+    return [torch.from_numpy(tchw[[(i + b) % t for i in range(t)]]) for b in range(batch)]
+
+
+def row_run(torch, devices, cfg, streams, modules, mesh_shape=None):
+    """The streams through the unsharded step of ``cfg``'s mode on
+    devices[0] (mesh_shape None; one stream after another a frame, as the
+    batch runs) or through build_sharded_step on a mesh of ``devices``,
+    counts reset just before. Returns (outputs [T, B, 3, H, W], step
+    seconds, launch counts, peak bytes on devices[0], plan or None)."""
+    from live_video_magnification_tpu_torch.models import color, motion, riesz
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.models.params import MagnificationMode
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+    from live_video_magnification_tpu_torch.parallel.sharding import (
+        build_sharded_step,
+        sharded_plan,
+    )
+
+    t, _, h, w = streams[0].shape
+    batch, dev = len(streams), devices[0]
+    chain = MagnificationChain(device=dev)
+    key = chain.static_key(cfg, h, w, 3)
+    dyn, levels, fps = chain._dyn_params(cfg, key), key.levels, cfg.magnification.framerate
+    mode = key.mode
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = None
+    if mesh_shape is None:
+        single = {MagnificationMode.PHASE: (lambda: riesz.init_state(h, w, levels, device=dev),
+                                            lambda s, f: riesz.step(s, f, dyn, levels=levels)),
+                  MagnificationMode.LAPLACE: (
+                      lambda: motion.init_state(h, w, 3, levels, device=dev),
+                      lambda s, f: motion.step(s, f, dyn, levels=levels)),
+                  MagnificationMode.COLOR: (
+                      lambda: color.init_state(h, w, 3, levels, fps, device=dev),
+                      lambda s, f: color.step(s, f, dyn, levels=levels, framerate=fps))}[mode]
+        states = [single[0]() for _ in streams]
+
+        def step(i):
+            outs = []
+            for b, x in enumerate(streams):
+                states[b], out = single[1](states[b], x[i].to(dev))
+                outs.append(out)
+            return torch.stack(outs)
+    else:
+        mesh = make_mesh(mesh_shape, devices=devices)
+        plan = sharded_plan(mesh, mode, h, w, levels)
+        sharded, state = build_sharded_step(mesh, mode, batch, h, w, levels, fps)
+        box = [state]
+
+        def step(i):
+            box[0], out = sharded(box[0], torch.stack([x[i] for x in streams]), dyn)
+            return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts(*modules)
+    outs, step_s = [], []
+    for i in range(t):
+        t0 = time.perf_counter()
+        out = step(i)
+        for d in dict.fromkeys(devices):
+            torch.cuda.synchronize(d)
+        step_s.append(time.perf_counter() - t0)
+        outs.append(out.cpu().numpy())
+    return (np.stack(outs), step_s, launch_counts(*modules),
+            torch.cuda.max_memory_allocated(dev), plan)
+
+
+def row_cell(torch, name, mode, frames, levels, meshes, modules, dev, phase_name, cards=None):
+    """One row-sharded cell: per mesh, the sharded step against the
+    unsharded step on the same streams, two passes (the second in reverse
+    order), each run's ms/frame beside the unsharded step's of its pass.
+    Asserts the frames (phase and motion bit for bit, colour within one
+    LSB), the first frame's passthrough and the launches (phase:
+    ``row_stencil_launches(plan)`` a frame and stream, no K10 and no tail
+    kernel; motion and colour: none of K1-K10). ``cards``: real devices in
+    place of virtual shards of ``dev`` (the ratio is then
+    ``over_mesh_1x1``, the unsharded step on one card)."""
+    from live_video_magnification_tpu_torch.parallel.row_sharded import row_stencil_launches
+
+    cfg = mode_cfg(mode, levels=levels)
+    exact = mode != "color"
+    batch = max(b for _, _, b in meshes)
+    streams = row_streams(frames, batch)
+    runs = [("unsharded", None, batch)] + list(meshes)
+    ref, lines = None, []
+    for n_pass, order in enumerate((runs, runs[::-1]), start=1):
+        for run_name, shape, b in order:
+            devices = ([dev] if shape is None else
+                       cards if cards is not None else [dev] * int(np.prod(shape)))
+            out, step_s, launches, peak, plan = row_run(torch, devices, cfg, streams[:b],
+                                                        modules, shape)
+            t = len(step_s)
+            steady = 1e3 * sum(step_s[2:]) / len(step_s[2:])
+            line = dict(phase=phase_name, cell=name, run=n_pass, config=run_name,
+                        card=torch.cuda.get_device_name(dev), mode=mode,
+                        shape=list(frames.shape[1:3]), levels=cfg.magnification.levels,
+                        framerate=cfg.magnification.framerate, frames=t, streams=b,
+                        devices=[str(d) for d in devices], step_ms=[1e3 * x for x in step_s],
+                        steady_ms_per_step=steady, steady_ms_per_frame=steady / b,
+                        peak_memory_bytes_first_device=peak,
+                        launches_per_frame={k: v / (t * b) for k, v in launches.items() if v})
+            lines.append(line)
+            if shape is None:
+                ref = out if ref is None else ref
+                continue
+            diff = np.abs(out.astype(np.int16) - ref[:, :b].astype(np.int16))
+            lsb = [int(diff[i].max()) for i in range(t)]
+            if max(lsb) > (0 if exact else 1):
+                raise AssertionError(f"{phase_name} {name} {run_name}: frames off the unsharded "
+                                     f"step's by {lsb} LSB")
+            if not np.array_equal(out[0], np.stack([x[0].numpy() for x in streams[:b]])):
+                raise AssertionError(f"{phase_name} {name} {run_name}: frame 0 is not the input")
+            per_frame = row_stencil_launches(plan) if mode == "phase" else {}
+            want = {k: v * t * b for k, v in per_frame.items() if v}
+            got = {k: v for k, v in launches.items() if v}
+            if got != want:
+                raise AssertionError(f"{phase_name} {name} {run_name}: launched {got} in {t} "
+                                     f"frames of {b} streams, derived {want}")
+            line.update(plan_sharded=list(plan.sharded), plan_axis=plan.axis,
+                        max_lsb_vs_unsharded=lsb,
+                        pixels_differing_vs_unsharded=[int(np.count_nonzero(diff[i].max(axis=1)))
+                                                       for i in range(t)],
+                        derived_stencil_launches_per_frame=per_frame,
+                        k10_launches=launches["halo_exchange_cols_rdma"])
+    ratio = "over_mesh_1x1" if cards is not None else "over_unsharded"
+    for line in lines:
+        base = next(x for x in lines if x["run"] == line["run"] and x["config"] == "unsharded")
+        if line is not base:
+            line["unsharded_steady_ms_per_frame"] = base["steady_ms_per_frame"]
+            line[ratio] = line["steady_ms_per_frame"] / base["steady_ms_per_frame"]
+        log(**line)
+
+
+def slice_row_sharded(torch, dev, st, tl, hl, frames_4k):
+    """The row-sharded steps (parallel/row_sharded.py) on virtual shards of
+    one card: motion and colour at 2160x3840 at their defaults (motion
+    levels 4; colour levels 3, 30 fps), two streams on a (2,2) mesh and one
+    on (1,4); phase at 768x1366 levels 6 on (1,4) (1366 does not lane-shard
+    4-way: the fallback; its rows shard at levels 0-3). ROW_FRAMES frames
+    each; then the same over the real cards when there are two or more."""
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    modules = (st, tl, hl)
+    small = moving_clip(ROW_FRAMES, 768, 1366, seed=SEED + 12)
+    clips = {"motion_4k": frames_4k[:ROW_FRAMES], "color_4k": frames_4k[:ROW_FRAMES],
+             "phase_768x1366": small}
+    for name, mode, h, w, levels, meshes in ROW_CELLS:
+        row_cell(torch, name, mode, clips[name], levels, meshes, modules, dev,
+                 "slice_row_sharded")
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(phase="slice_row_sharded_multi_gpu", skipped="one CUDA device")
+        return
+    devices = [torch.device("cuda", i) for i in range(min(cards, 4))]
+    for name, mode, h, w, levels, _ in ROW_CELLS:
+        row_cell(torch, name, mode, clips[name], levels,
+                 ((f"cards_1x{len(devices)}", (1, len(devices)), 1),), modules, dev,
+                 "slice_row_sharded_multi_gpu", cards=devices)
 
 
 # ---------------------------------------------------------------- the live engine
@@ -2696,14 +2897,18 @@ def main() -> int:
     slice_4k_time_parallel(torch, dev, st, tl, hl, frames_tp[:TP_CHUNK])
     virtual = slice_4k_time_mesh(torch, dev, st, tl, hl, frames_tp)
     slice_time_mesh_multi_gpu(torch, st, tl, hl, frames_tp, virtual)
-    del frames_tp, virtual
+    del virtual
+    slice_row_sharded(torch, dev, st, tl, hl, frames_tp[:ROW_FRAMES])
+    frames_sharded = frames_tp[:SHARDED_FRAMES].copy()
+    del frames_tp
     distributed_2rank(torch, dev)
     flagship = slice_card_vs_cpu(torch, dev, st, tl, "jnp")
     slice_card_vs_cpu(torch, dev, st, tl, "level")
     slice_card_vs_cpu(torch, dev, st, tl, "fast")
     slice_card_vs_cpu_modes(torch, dev, st, tl, hl)
     slice_card_vs_cpu_time_parallel(torch, dev, st, tl, hl)
-    sharded = slice_4k_sharded(torch, dev, st, tl, hl)
+    sharded = slice_4k_sharded(torch, dev, st, tl, hl, frames_sharded)
+    del frames_sharded
     engine_consumer_4k(torch, dev, st, tl, hl)
     live_phases(torch, dev, st, tl, hl)
     record_export_1080p(torch, dev, st, tl, hl)

@@ -10,10 +10,11 @@ levels+1 ``lowpass_lo`` planes. Colour: ``count`` and the ``window``.
 Checkpoints (``export/batch.py``) use the same order; ``count`` is a host int
 in the port.
 
-The lane-sharded step (``parallel/riesz_sharded.py``) carries, per batch
-element, one RieszState per tile shard; the reference's sharded step carries
-one batched RieszState of global [B, ...] leaves. The two functions at the
-end map one to the other for a given mesh and plan.
+The sharded steps (``parallel/riesz_sharded.py``, lane-sharded phase;
+``parallel/row_sharded.py``, row-sharded motion, colour and phase) carry,
+per batch element, one mode state per tile shard; the reference's sharded
+step carries one batched state of global [B, ...] leaves. The functions at
+the end map one to the other for a given mesh and plan, in each mode.
 
 This module imports no JAX: callers hand over numpy arrays.
 """
@@ -29,11 +30,9 @@ from live_video_magnification_tpu_torch.device import resolve_device
 from live_video_magnification_tpu_torch.models import color as color_mode
 from live_video_magnification_tpu_torch.models import motion as motion_mode
 from live_video_magnification_tpu_torch.models.riesz import RieszDynParams, init_state
-from live_video_magnification_tpu_torch.parallel.riesz_sharded import (
-    RieszShardPlan,
-    state_levels,
-    tile_rows,
-)
+from live_video_magnification_tpu_torch.models.params import MagnificationMode
+from live_video_magnification_tpu_torch.parallel.row_sharded import state_layout
+from live_video_magnification_tpu_torch.parallel.sharding import shard_batched_state
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -156,48 +155,64 @@ def color_dyn_from_jax(dyn: Any) -> color_mode.ColorDynParams:
     return color_mode.ColorDynParams(*(_f32(v) for v in dyn))
 
 
-def sharded_riesz_state_from_jax(leaves: Sequence[np.ndarray], mesh, plan: RieszShardPlan):
-    """The lane-sharded step's state from the reference sharded step's
-    (batched RieszState leaves as global [B, ...] numpy arrays, in
-    ``jax.tree.flatten`` order): per batch element, the tuple of its tile
-    row's per-shard RieszStates, each on its device; sharded levels as the
-    shard's strip of W, replicated levels whole. f32 leaves."""
-    layout = state_levels(plan.levels)
-    levels_of = tree_leaves(layout)
-    if len(leaves) != len(levels_of):
-        raise ValueError(f"expected {len(levels_of)} state leaves, got {len(leaves)}")
-    batch = int(np.shape(leaves[0])[0])
-    state = []
-    for b, devices in enumerate(tile_rows(mesh, batch)):
-        row = []
-        for k, dev in enumerate(devices):
-            vals = []
-            for leaf, l in zip(leaves, levels_of):
-                if l < 0:
-                    vals.append(int(np.asarray(leaf)[b]))
-                    continue
-                a = np.asarray(leaf, np.float32)[b]
-                if plan.sharded[l]:
-                    wl = a.shape[-1] // plan.n
-                    a = a[..., k * wl: (k + 1) * wl]
-                vals.append(torch.tensor(np.ascontiguousarray(a), device=dev))
-            row.append(tree_unflatten(layout, vals))
-        state.append(tuple(row))
-    return tuple(state)
+def _sharded_from_jax(mode: MagnificationMode, leaves: Sequence[np.ndarray], mesh, plan):
+    """``shard_batched_state`` of the batched state whose leaves (global
+    [B, ...], in ``jax.tree.flatten`` order) are ``leaves``."""
+    layout = state_layout(mode, plan)
+    if len(leaves) != len(tree_leaves(layout)):
+        raise ValueError(f"expected {len(tree_leaves(layout))} state leaves, got {len(leaves)}")
+    return shard_batched_state(tree_unflatten(layout, [np.asarray(x) for x in leaves]), mesh,
+                               plan)
 
 
-def sharded_riesz_state_to_jax(state, plan: RieszShardPlan) -> List[np.ndarray]:
-    """The inverse of ``sharded_riesz_state_from_jax``: global [B, ...] numpy
-    leaves (the count as int32 [B]), sharded levels concatenated over the
-    tile row, replicated levels from its first shard."""
-    levels_of = tree_leaves(state_levels(plan.levels))
+def _sharded_to_jax(mode: MagnificationMode, state, plan) -> List[np.ndarray]:
+    """Global [B, ...] numpy leaves (the count as int32 [B]) of a sharded
+    step's state: sharded levels concatenated over the tile row along
+    ``plan.axis``, the others from its first shard."""
     rows = [[tree_leaves(s) for s in row] for row in state]
     out = []
-    for j, l in enumerate(levels_of):
+    for j, l in enumerate(tree_leaves(state_layout(mode, plan))):
         if l < 0:
             out.append(np.asarray([row[0][j] for row in rows], np.int32))
             continue
-        per_b = [np.concatenate([s[j].detach().cpu().numpy() for s in row], axis=-1)
+        per_b = [np.concatenate([s[j].detach().cpu().numpy() for s in row], axis=plan.axis)
                  if plan.sharded[l] else row[0][j].detach().cpu().numpy() for row in rows]
         out.append(np.stack(per_b))
     return out
+
+
+def sharded_riesz_state_from_jax(leaves: Sequence[np.ndarray], mesh, plan):
+    """A sharded phase step's state from the reference sharded step's
+    (batched RieszState leaves as global [B, ...] numpy arrays, in
+    ``jax.tree.flatten`` order): per batch element, the tuple of its tile
+    row's per-shard RieszStates; sharded levels as the shard's strip (of W
+    on a lane plan, of H on a row plan), the others whole. f32 leaves."""
+    return _sharded_from_jax(MagnificationMode.PHASE, leaves, mesh, plan)
+
+
+def sharded_riesz_state_to_jax(state, plan) -> List[np.ndarray]:
+    """The inverse of ``sharded_riesz_state_from_jax``."""
+    return _sharded_to_jax(MagnificationMode.PHASE, state, plan)
+
+
+def sharded_motion_state_from_jax(leaves: Sequence[np.ndarray], mesh, plan):
+    """The row-sharded motion step's state from the reference sharded
+    step's batched MotionState leaves (count, then the levels+1 hi and lo
+    planes, global [B, C, h, w])."""
+    return _sharded_from_jax(MagnificationMode.LAPLACE, leaves, mesh, plan)
+
+
+def sharded_motion_state_to_jax(state, plan) -> List[np.ndarray]:
+    """The inverse of ``sharded_motion_state_from_jax``."""
+    return _sharded_to_jax(MagnificationMode.LAPLACE, state, plan)
+
+
+def sharded_color_state_from_jax(leaves: Sequence[np.ndarray], mesh, plan):
+    """The row-sharded colour step's state from the reference sharded
+    step's batched ColorState leaves (count [B], window [B, W, C, hs, ws])."""
+    return _sharded_from_jax(MagnificationMode.COLOR, leaves, mesh, plan)
+
+
+def sharded_color_state_to_jax(state, plan) -> List[np.ndarray]:
+    """The inverse of ``sharded_color_state_from_jax``."""
+    return _sharded_to_jax(MagnificationMode.COLOR, state, plan)

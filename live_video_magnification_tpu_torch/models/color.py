@@ -107,10 +107,13 @@ def step(state: ColorState, frame_u8: torch.Tensor, dyn: ColorDynParams, *,
     output = inp + reconstruct_from_gauss_level(small_filtered, levels, (h, w))
 
     # rescale by the output's own min and max over all channels (MagnifyCore.hpp:199-203)
-    omn, omx = output.min(), output.max()
+    return new_state, rescale_u8(output, output.min(), output.max())
+
+
+def rescale_u8(output: torch.Tensor, omn: torch.Tensor, omx: torch.Tensor) -> torch.Tensor:
+    """u8 of ``output`` rescaled so that [omn, omx] maps onto [0, 255]."""
     span = omx - omn
-    out_u8 = to_u8(output, span.new_full((), 255.0) / span, -omn * 255.0 / span)
-    return new_state, out_u8
+    return to_u8(output, span.new_full((), 255.0) / span, -omn * 255.0 / span)
 
 
 def process_clip(frames_u8: torch.Tensor, dyn: ColorDynParams, *, levels: int,
@@ -206,10 +209,9 @@ def process_clip_parallel(frames_u8, dyn: ColorDynParams, *, levels: int,
         inputs[j] = smalls[j] = None
         del rows, color_img
         # rescale each frame by its own min and max over all channels
-        omn = output.amin(dim=(1, 2, 3), keepdim=True)
-        span = output.amax(dim=(1, 2, 3), keepdim=True) - omn
-        out = to_u8(output, span.new_full((), 255.0) / span, -omn * 255.0 / span)
-        del output, omn, span
+        out = rescale_u8(output, output.amin(dim=(1, 2, 3), keepdim=True),
+                         output.amax(dim=(1, 2, 3), keepdim=True))
+        del output
         for i, n in enumerate(lengths):
             if n < 2:  # warm-up: the raw frame passes through
                 out[i] = f[i]

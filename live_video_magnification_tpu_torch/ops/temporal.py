@@ -167,8 +167,14 @@ def minmax_bounds(valid: torch.Tensor, dims: Optional[Tuple[int, ...]] = None):
         mn, mx = valid.min(), valid.max()
     else:
         mn, mx = valid.amin(dim=dims, keepdim=True), valid.amax(dim=dims, keepdim=True)
+    return mn, minmax_scale(mn, mx)
+
+
+def minmax_scale(mn: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """The NORM_MINMAX scale of a min and a max: 1/(max-min), or 0 where
+    max-min <= DBL_EPSILON."""
     delta = mx - mn
-    return mn, torch.where(delta > _DBL_EPSILON, 1.0 / delta, 0.0)
+    return torch.where(delta > _DBL_EPSILON, 1.0 / delta, 0.0)
 
 
 def butterworth(order: int, wn: float) -> Tuple[np.ndarray, np.ndarray]:

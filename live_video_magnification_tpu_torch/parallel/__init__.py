@@ -1,5 +1,6 @@
-"""Sharding over a mesh of devices: the mesh, the halo exchanges and the
-lane-sharded (W-axis) Riesz step; the time mesh of the batch export (its
+"""Sharding over a mesh of devices: the mesh, the halo exchanges, the
+lane-sharded (W-axis) Riesz step and the row-sharded (H-axis) steps of
+every mode behind ``build_sharded_step``; the time mesh of the batch export (its
 boundary step in ``time_shard.py``) and the multi-process bring-up.
 
 The names below load on first use: ``time_shard`` sits under ``models/``,
@@ -9,6 +10,8 @@ _EXPORTS = {
     "make_mesh": "mesh",
     "Mesh": "mesh",
     "build_sharded_step": "sharding",
+    "shard_batched_state": "sharding",
+    "sharded_plan": "sharding",
     "TimeShards": "time_shard",
     "DistributedClipExporter": "batch_export",
     "export_video_distributed": "batch_export",

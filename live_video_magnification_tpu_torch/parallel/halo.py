@@ -4,7 +4,9 @@ The counterpart of the reference package's ``parallel/halo.py``:
 
   * halo_exchange_rows / sharded_correlate2d / make_sharded_conv: a dense 2-D
     correlation with the rows (H) split over a mesh axis, reflect-101 at the
-    global top and bottom, neighbour rows at interior boundaries;
+    global top and bottom, neighbour rows at interior boundaries; the row
+    exchange is also every exchange of the row-sharded steps
+    (parallel/row_sharded.py);
   * halo_exchange_cols_rdma: the column exchange between lane shards, K10,
     the CUDA kernel of ops/hopper/halo.py.
 
@@ -20,26 +22,45 @@ import numpy as np
 import torch
 
 from live_video_magnification_tpu_torch.ops.conv import correlate2d
-from live_video_magnification_tpu_torch.ops.hopper.halo import halo_exchange_cols_rdma
+from live_video_magnification_tpu_torch.ops.hopper.halo import (
+    RIGHT_MODES,
+    halo_exchange_cols_rdma,
+)
 from live_video_magnification_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["halo_exchange_rows", "sharded_correlate2d", "make_sharded_conv",
            "halo_exchange_cols_rdma"]
 
 
-def halo_exchange_rows(shards: Sequence[torch.Tensor], halo: int) -> List[torch.Tensor]:
-    """[h_local, ...] row shards -> [h_local + 2*halo, ...] each, with the
-    neighbours' rows at interior boundaries and reflect-101 at the global top
-    and bottom, exactly matching an unsharded reflect pad. Requires
+def halo_exchange_rows(shards: Sequence[torch.Tensor], halo: int,
+                       bottom_mode: str = "reflect", dim: int = 0) -> List[torch.Tensor]:
+    """Row shards (rows on ``dim``: [h_local, ...] by default, [..., h_local,
+    w] with dim=-2) -> h_local + 2*halo rows each, with the neighbours' rows
+    at interior boundaries and reflect-101 at the global top and bottom,
+    exactly matching an unsharded reflect pad. ``bottom_mode="symmetric"``
+    pads the global bottom SYMMETRIC instead: the zero-injection quirk, the
+    row twin of K10's ``right_mode``. A neighbour's rows move to the shard's
+    device with ``.to`` (a copy within a card or between cards); rows on
+    dim 0 or -2 are contiguous blocks, so no kernel is needed. Requires
     h_local > halo."""
+    if bottom_mode not in RIGHT_MODES:
+        raise ValueError(f"bottom_mode {bottom_mode!r}: expected one of {RIGHT_MODES}")
     n = len(shards)
     out = []
     for k, x in enumerate(shards):
-        top = (torch.flip(x[1: halo + 1], dims=(0,)) if k == 0
-               else shards[k - 1][-halo:].to(x.device))
-        bot = (torch.flip(x[-halo - 1: -1], dims=(0,)) if k == n - 1
-               else shards[k + 1][:halo].to(x.device))
-        out.append(torch.cat([top, x, bot], dim=0))
+        if x.shape[dim] <= halo:
+            raise ValueError(f"{x.shape[dim]} local rows cannot give a halo of {halo}")
+        rows = lambda a, b: x.narrow(dim, a, b - a)
+        h = x.shape[dim]
+        top = (torch.flip(rows(1, halo + 1), dims=(dim,)) if k == 0
+               else shards[k - 1].narrow(dim, h - halo, halo).to(x.device))
+        if k < n - 1:
+            bot = shards[k + 1].narrow(dim, 0, halo).to(x.device)
+        elif bottom_mode == "symmetric":
+            bot = torch.flip(rows(h - halo, h), dims=(dim,))
+        else:
+            bot = torch.flip(rows(h - halo - 1, h - 1), dims=(dim,))
+        out.append(torch.cat([top, x, bot], dim=dim))
     return out
 
 

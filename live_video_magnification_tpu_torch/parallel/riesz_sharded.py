@@ -41,14 +41,16 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Callable, ClassVar, List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from live_video_magnification_tpu_torch.models.riesz import (
     RegPair,
     RieszDynParams,
     RieszState,
+    init_state,
     resolve_tail,
 )
 from live_video_magnification_tpu_torch.ops.color import (
@@ -92,7 +94,13 @@ Shards = List[torch.Tensor]  # one tensor per shard of a tile row, in mesh order
 
 @dataclasses.dataclass(frozen=True)
 class RieszShardPlan:
-    """Per-level W-axis sharding decisions for an n-way 'tile' mesh axis."""
+    """Per-level W-axis sharding decisions for an n-way 'tile' mesh axis.
+    ``axis``: the sharded dim of a plane; ``gather_to_first``: whether an
+    unsharded level lives on the tile row's first device alone (False:
+    once on every device of the row)."""
+
+    axis: ClassVar[int] = -1
+    gather_to_first: ClassVar[bool] = False
 
     n: int
     levels: int
@@ -140,7 +148,15 @@ class _Ops:
     LVMT_TAIL once, here, at build time; 'level' (K9) has no sharded form and
     maps to 'mxu', the closest sharded analogue, as in the reference.
     ``band_parallel``: replicated levels' tails run on one owner device.
-    The stencils dispatch on the tensor's device themselves."""
+    The stencils dispatch on the tensor's device themselves.
+
+    ``axis`` is the sharded dim of a plane (W here; the row-sharded step's
+    ops, parallel/row_sharded.py, shard H with the same level ops), and
+    ``fused_by_level`` whether a sharded level's build takes K5 by the
+    level's shape (True) or by the haloed strip's (False, this step's rule)."""
+
+    axis = -1
+    fused_by_level = False
 
     def __init__(self, tail: str | None = None, band_parallel: bool = False):
         if tail is None:
@@ -157,6 +173,10 @@ class _Ops:
         reflect-101 of a 2x zero-injected array maps to reflect-101 (leading)
         / SYMMETRIC (trailing) padding of the small image."""
         return kernel_halo.halo_exchange_cols_rdma(shards, halo, right_mode)
+
+    def take(self, x: torch.Tensor, start: int, length: int) -> torch.Tensor:
+        """[start, start + length) of x's sharded dim, contiguous."""
+        return x.narrow(self.axis, start, length).contiguous()
 
     def tail_kernel(self, h: int, w: int) -> Callable | None:
         """The amplify kernel of the tail on an [h, w] plane, or None for the
@@ -185,10 +205,6 @@ def _build_level(octave: torch.Tensor):
     return hp, r, i, stencils.lp9_decimate(octave, LOWPASS_2X)
 
 
-def _cols(x: torch.Tensor, start: int, width: int) -> torch.Tensor:
-    return x[..., start: start + width].contiguous()
-
-
 # --------------------------------------------------------------------------- sharded level ops
 
 
@@ -204,53 +220,63 @@ def _sharded_build_level(ops: _Ops, octave: Shards):
     unsharded band5 mirrors hp there, while the halo would give it conv9 of
     the mirrored octave, the same value summed in another order; without
     the halo each kernel mirrors at that edge as on the whole level. The
-    strip takes K5 (one pass) where its short side is 16 to 95, conv9, band5
-    and lp9_decimate otherwise, as the unsharded build picks by the level."""
-    n, wl = len(octave), octave[0].shape[-1]
+    strip takes K5 (one pass) where its short side (or the level's, under
+    ``ops.fused_by_level``) is 16 to 95, conv9, band5 and lp9_decimate
+    otherwise, as the unsharded build picks by the level; K5 equals the
+    three bit for bit. Columns here are ``ops.axis`` (rows on a row plan)."""
+    n, ax = len(octave), ops.axis
+    wl = octave[0].shape[ax]
+    level = list(octave[0].shape)
+    level[ax] = n * wl
     out = []
     for k, xh in enumerate(ops.exchange(octave, _BLUR_HALO)):
         lo = _BLUR_HALO if k == 0 else 0
-        hi = xh.shape[-1] - (_BLUR_HALO if k == n - 1 else 0)
-        strip = _cols(xh, lo, hi - lo)
+        hi = xh.shape[ax] - (_BLUR_HALO if k == n - 1 else 0)
+        strip = ops.take(xh, lo, hi - lo)
         first = _BLUR_HALO - lo  # the strip column of the shard's first column
-        if _fused_build_ok(*strip.shape):
+        if _fused_build_ok(*(level if ops.fused_by_level else strip.shape)):
             hp, r, i, sub = stencils.riesz_build_level(strip)
             start = first
         else:
             apron = max(first - _BAND_HALO, 0)
             hp = stencils.conv9(strip, RIESZ_HIGHPASS_9x9)
-            hp = _cols(hp, apron, min(first + wl + _BAND_HALO, hp.shape[-1]) - apron)
+            hp = ops.take(hp, apron, min(first + wl + _BAND_HALO, hp.shape[ax]) - apron)
             r, i = stencils.band5(hp, RIESZ_BAND_KERNEL)
             sub = stencils.lp9_decimate(strip, LOWPASS_2X)
             start = first - apron
         # sub col j' <- strip col 2j'; the shard's first column is even
-        out.append((*(_cols(x, start, wl) for x in (hp, r, i)),
-                    _cols(sub, first // 2, wl // 2)))
+        out.append((*(ops.take(x, start, wl) for x in (hp, r, i)),
+                    ops.take(sub, first // 2, wl // 2)))
     return out
 
 
 def _sharded_conv9(ops: _Ops, x: Shards) -> Shards:
-    wl = x[0].shape[-1]
-    return [_cols(stencils.conv9(xh, RIESZ_HIGHPASS_9x9), _CONV9_HALO, wl)
+    wl = x[0].shape[ops.axis]
+    return [ops.take(stencils.conv9(xh, RIESZ_HIGHPASS_9x9), _CONV9_HALO, wl)
             for xh in ops.exchange(x, _CONV9_HALO)]
 
 
 def _sharded_band5(ops: _Ops, hp: Shards):
-    wl = hp[0].shape[-1]
+    wl = hp[0].shape[ops.axis]
     out = []
     for hph in ops.exchange(hp, _BAND_HALO):
         r, i = stencils.band5(hph, RIESZ_BAND_KERNEL)
-        out.append((_cols(r, _BAND_HALO, wl), _cols(i, _BAND_HALO, wl)))
+        out.append((ops.take(r, _BAND_HALO, wl), ops.take(i, _BAND_HALO, wl)))
     return out
 
 
-def _sharded_inject(ops: _Ops, small: Shards, out_h: int) -> Shards:
+def _sharded_inject(ops: _Ops, small: Shards, out_local: Sequence[int]) -> Shards:
     """A 2-col small halo gives 4 injected halo columns, exactly conv9's
-    reach. The trailing global edge pads SYMMETRIC (zero-injection quirk)."""
-    sw = small[0].shape[-1]
-    return [_cols(stencils.lp9_inject(sm, LOWPASS_2X, (out_h, 2 * sm.shape[-1])),
-                  2 * _BAND_HALO, 2 * sw)
-            for sm in ops.exchange(small, _BAND_HALO, right_mode="symmetric")]
+    reach. The trailing global edge pads SYMMETRIC (zero-injection quirk).
+    ``out_local``: the (h, w) of one shard's strip of the finer level."""
+    sw = small[0].shape[ops.axis]
+    out = []
+    for sm in ops.exchange(small, _BAND_HALO, right_mode="symmetric"):
+        out_hw = list(out_local)
+        out_hw[ops.axis] = 2 * sm.shape[ops.axis]
+        out.append(ops.take(stencils.lp9_inject(sm, LOWPASS_2X, tuple(out_hw)),
+                            2 * _BAND_HALO, 2 * sw))
+    return out
 
 
 def _sharded_tail(ops: _Ops, level: Sequence[RieszLevel], amplitude: Shards, wc: Shards,
@@ -259,16 +285,18 @@ def _sharded_tail(ops: _Ops, level: Sequence[RieszLevel], amplitude: Shards, wc:
     a 6-col halo; everything else is element-wise. wc/ws are the raw (hi-lo)
     cos/sin difference. A tail kernel takes the six planes, stacked, from one
     exchange; the plain tail exchanges its three blur inputs one by one."""
-    h, wl = level[0].lowpass.shape
-    kern = ops.tail_kernel(h, wl + 2 * _BLUR_HALO)
+    haloed = list(level[0].lowpass.shape)
+    wl = haloed[ops.axis]
+    haloed[ops.axis] += 2 * _BLUR_HALO
+    kern = ops.tail_kernel(*haloed)
     if kern is not None:
         stacks = [torch.stack([a, c, s, lv.lowpass, lv.riesz.cos, lv.riesz.sin])
                   for a, c, s, lv in zip(amplitude, wc, ws, level)]
-        return [_cols(kern(*sh.unbind(0), alpha, threshold), _BLUR_HALO, wl)
+        return [ops.take(kern(*sh.unbind(0), alpha, threshold), _BLUR_HALO, wl)
                 for sh in ops.exchange(stacks, _BLUR_HALO)]
 
     def blurred(planes: Shards) -> Shards:
-        return [_cols(amplitude_blur(x), _BLUR_HALO, wl)
+        return [ops.take(amplitude_blur(x), _BLUR_HALO, wl)
                 for x in ops.exchange(planes, _BLUR_HALO)]
 
     amp_blur = blurred(amplitude)
@@ -321,41 +349,55 @@ def _replicated_tail(ops: _Ops, cur: RieszLevel, old: RieszLevel, acc, lo, hi,
 
 class _Row:
     """The devices of one tile row and the two ways a stage runs on them:
-    ``each`` once per shard (sharded values), ``once`` once per distinct
-    device, shared by that device's shards (replicated values)."""
+    ``each`` once per shard (sharded values), ``once`` once per home
+    (unsharded values), shared by the shards of that home. A shard's home
+    is the first shard on its device, or shard 0 for every shard under the
+    plan's ``gather_to_first``; ``axis`` is the plan's sharded dim."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device], plan):
         self.devices = list(devices)
-        self.owner: Dict[torch.device, int] = {}
-        for k, d in enumerate(self.devices):
-            self.owner.setdefault(d, k)
+        self.axis = plan.axis
+        first = {}
+        self.home = [0 if plan.gather_to_first else first.setdefault(d, k)
+                     for k, d in enumerate(self.devices)]
+        self.homes = list(dict.fromkeys(self.home))
 
     def each(self, fn, *per_shard):
         return [fn(*args) for args in zip(*per_shard)]
 
     def once(self, fn, *per_shard):
-        done = {d: fn(*(v[k] for v in per_shard)) for d, k in self.owner.items()}
-        return [done[d] for d in self.devices]
+        done = {h: fn(*(v[h] for v in per_shard)) for h in self.homes}
+        return [done[h] for h in self.home]
 
     def on(self, sharded: bool):
         return self.each if sharded else self.once
 
     def gather(self, shards: Shards) -> Shards:
-        """The full array, once per device (the reference's tiled all_gather)."""
-        full = {d: torch.cat([s.to(d) for s in shards], dim=-1) for d in self.owner}
-        return [full[d] for d in self.devices]
+        """The full array, once per home (the reference's tiled all_gather)."""
+        full = {h: torch.cat([s.to(self.devices[h]) for s in shards], dim=self.axis)
+                for h in self.homes}
+        return [full[h] for h in self.home]
+
+    def scatter(self, full: Shards) -> Shards:
+        """Each shard's strip of an unsharded array, on the shard's device."""
+        n = len(self.devices)
+        length = full[0].shape[self.axis] // n
+        return [x.narrow(self.axis, k * length, length).contiguous().to(d)
+                for k, (x, d) in enumerate(zip(full, self.devices))]
 
     def broadcast(self, value):
-        """A value (a tree of tensors) on every device of the row."""
-        done = {d: _tree_map(lambda x: x.to(d), value) for d in self.owner}
-        return [done[d] for d in self.devices]
+        """A value (a tree of tensors) on every home of the row."""
+        done = {h: _tree_map(lambda x: x.to(self.devices[h]), value) for h in self.homes}
+        return [done[h] for h in self.home]
 
 
-def _tree_map(fn, tree):
+def _tree_map(fn, tree, *rest):
+    """fn over the leaves of ``tree`` (nested tuples and NamedTuples) and the
+    matching leaves of the trees in ``rest``."""
     if isinstance(tree, tuple):
-        mapped = [_tree_map(fn, t) for t in tree]
+        mapped = [_tree_map(fn, *children) for children in zip(tree, *rest)]
         return type(tree)(*mapped) if hasattr(tree, "_fields") else tuple(mapped)
-    return fn(tree)
+    return fn(tree, *rest)
 
 
 def _unzip(per_shard):
@@ -438,17 +480,14 @@ def _riesz_step_local(
     result = lowpasses[-1]
     for lvl in range(levels - 2, -1, -1):
         octave = lowpasses[lvl]
-        h_l = octave[0].shape[-2]
         if plan.sharded[lvl] and plan.sharded[lvl + 1]:
-            lp = _sharded_inject(ops, result, h_l)
+            lp = _sharded_inject(ops, result, octave[0].shape)
             hp = _sharded_conv9(ops, octave)
         elif plan.sharded[lvl]:
-            # small is replicated: each device computes the full (cheap)
-            # upsample term once and each shard slices its own strip
-            wl = octave[0].shape[-1]
-            lp_full = row.once(lambda s: stencils.lp9_inject(s, LOWPASS_2X, (h_l, plan.n * wl)),
-                               result)
-            lp = [_cols(x, k * wl, wl) for k, x in enumerate(lp_full)]
+            # small is unsharded: each home computes the full (cheap)
+            # upsample term once and each shard takes its own strip
+            lp = row.scatter(row.once(
+                lambda s: stencils.lp9_inject(s, LOWPASS_2X, plan.sizes[lvl]), result))
             hp = _sharded_conv9(ops, octave)
         else:
             lp = row.once(lambda s, o: stencils.lp9_inject(s, LOWPASS_2X, tuple(o.shape)),
@@ -489,12 +528,6 @@ def state_levels(levels: int) -> RieszState:
                       tuple(rp(l) for l in active), tuple(rp(l) for l in active))
 
 
-def leaf_shape(plan: RieszShardPlan, level: int) -> Tuple[int, int]:
-    """A state leaf's shape on one shard."""
-    lh, lw = plan.sizes[level]
-    return (lh, lw // plan.n) if plan.sharded[level] else (lh, lw)
-
-
 def tile_rows(mesh: Mesh, batch: int) -> List[List[torch.device]]:
     """The devices of each batch element's tile row: B shards over 'batch'
     in contiguous blocks, W over 'tile'."""
@@ -509,11 +542,33 @@ def tile_rows(mesh: Mesh, batch: int) -> List[List[torch.device]]:
     return [list(grid[b // per_row]) for b in range(batch)]
 
 
-def _init_row(plan: RieszShardPlan, devices: Sequence[torch.device]) -> List[RieszState]:
-    """Zero per-shard states of one tile row."""
-    layout = state_levels(plan.levels)
-    return [_tree_map(lambda l, d=d: 0 if l < 0 else torch.zeros(leaf_shape(plan, l), device=d),
-                      layout) for d in devices]
+def place_row(layout, state, devices: Sequence[torch.device], plan) -> tuple:
+    """One batch element's whole state as its tile row's per-shard states.
+
+    ``layout`` is the mode's state tree with each leaf's pyramid level (-1
+    for the count; ``state_levels`` for phase), ``state`` the element's
+    state in the same tree, its planes tensors or numpy arrays. A sharded
+    level's planes become each shard's strip along ``plan.axis``, on the
+    shard's device; the others lie whole on each home's device (one copy a
+    home, shared by its shards); the count becomes a host int."""
+    row = _Row(devices, plan)
+    homes = {}
+
+    def place(k, level, x):
+        if level < 0:
+            return int(x)
+        t = (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x, np.float32))
+             ).to(torch.float32)
+        if plan.sharded[level]:
+            length = t.shape[plan.axis] // plan.n
+            return t.narrow(plan.axis, k * length, length).to(devices[k], copy=True).contiguous()
+        h = row.home[k]
+        if (id(x), h) not in homes:
+            homes[id(x), h] = t.to(devices[h], copy=True)
+        return homes[id(x), h]
+
+    return tuple(_tree_map(lambda l, x, k=k: place(k, l, x), layout, state)
+                 for k in range(len(devices)))
 
 
 def build_sharded_riesz_step(
@@ -550,7 +605,7 @@ def build_sharded_riesz_step(
         raise ValueError(
             f"W={w} cannot be lane-sharded {n}-way at level 0 (the GSPMD path is not ported)")
     ops = _Ops(tail=tail, band_parallel=band_parallel)
-    row_objs = [_Row(r) for r in rows]
+    row_objs = [_Row(r, plan) for r in rows]
     first_device = mesh.devices.flat[0]
     wl = w // n
 
@@ -562,7 +617,8 @@ def build_sharded_riesz_step(
         for b, row in enumerate(row_objs):
             f = frames_u8[b]
             if plan.sharded[0]:
-                local = [_cols(f, k * wl, wl).to(d) for k, d in enumerate(row.devices)]
+                local = [f.narrow(-1, k * wl, wl).contiguous().to(d)
+                         for k, d in enumerate(row.devices)]
             else:
                 local = row.once(f.to, row.devices)
             st, out = _riesz_step_local(state[b], local, dyn, plan=plan, ops=ops, row=row)
@@ -581,5 +637,7 @@ def build_sharded_riesz_step(
                 total = total + out[:, :, ::64, ::64].to(torch.int32).sum()
             return state, total
 
-    state0 = tuple(tuple(_init_row(plan, r)) for r in rows)
+    layout = state_levels(levels)
+    state0 = tuple(place_row(layout, init_state(h, w, levels, device=r[0]), r, plan)
+                   for r in rows)
     return run, state0

@@ -255,19 +255,23 @@ def test_entry_points_raise_without_a_card_unless_cpu_is_asked(monkeypatch):
 
 
 def test_unported_modes_and_paths_raise():
-    """What is still unported raises (the sharded motion step, ROADMAP.md
-    queue 1 item 2); frames too small to magnify are the identity in every
-    mode, as in the reference, through the chain and through the
-    time-parallel clip path (tests/test_torch_time_parallel.py holds that
-    path; LAPLACE and COLOR are in tests/test_torch_modes.py)."""
+    """The sharded motion step, once unported here, is the row-sharded step
+    now (tests/test_torch_row_sharding.py holds it to the unsharded step and
+    to the reference's); the identity mode has no sharded step and raises.
+    Frames too small to magnify are the identity in every mode, as in the
+    reference, through the chain and through the time-parallel clip path
+    (tests/test_torch_time_parallel.py holds that path; LAPLACE and COLOR
+    are in tests/test_torch_modes.py)."""
     from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
     from live_video_magnification_tpu_torch.parallel.sharding import build_sharded_step
 
     tc = TChain(device="cpu")
     _, tcfg = _cfg_pair()
     mesh = make_mesh((1, 2), ("batch", "tile"), devices=["cpu"] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_sharded_step(mesh, tparams.MagnificationMode.LAPLACE, 1, H, W, 3)
+    _, state = build_sharded_step(mesh, tparams.MagnificationMode.LAPLACE, 1, H, W, 3)
+    assert state[0][1].lowpass_hi[0].shape == (3, H // 2, W)
+    with pytest.raises(ValueError, match="no sharded step"):
+        build_sharded_step(mesh, tparams.MagnificationMode.NONE, 1, H, W, 3)
     tiny = _clip()[0][:5, :9]
     for mode in tparams.MagnificationMode:
         cfg = dataclasses.replace(tcfg, magnification=dataclasses.replace(
@@ -281,3 +285,50 @@ def test_unported_modes_and_paths_raise():
         processed, original = proc.process_chunk(chunk)
         np.testing.assert_array_equal(processed, chunk)
         np.testing.assert_array_equal(original, chunk)
+
+
+@pytest.mark.parametrize("mode", ["phase", "laplace"])
+def test_noise_frames_equal_the_reference_op_by_op_given_its_lab_planes(mode, monkeypatch):
+    """The trace of ROADMAP.md queue 3's noise-frame fault. On the live
+    engine's uniform-noise frames (engine/source.py::SyntheticSource, 96x128,
+    levels 2, the parameters of tests/test_torch_engine.py's controller
+    test) the port's chain differs from the reference's jitted chain by
+    more than one LSB at isolated values. So does the reference's own
+    op-by-op run (``jax.disable_jit``) at those values: XLA's fusion of the
+    jitted step moves last ulps, which a singularity of the phase (acos,
+    atan2) or a clip out of gamut turns into LSBs. Against the op-by-op
+    reference, with the reference's Lab planes (its cube root and gamma
+    round otherwise than torch's ``pow``) substituted for the port's, the
+    port is within one LSB at every value: no formula differs."""
+    from live_video_magnification_tpu.ops import color as jcolor
+    from live_video_magnification_tpu_torch.engine.source import SyntheticSource
+    from live_video_magnification_tpu_torch.models import motion as tmotion
+
+    src = SyntheticSource(None, None, None, h=96, w=128, fps=240.0, n_frames=12)
+    frames = [src._render(i) for i in range(12)]
+    cfgs = [pm.ProcessorConfig(magnification=pm.MagnificationParams(
+        mode=pm.MagnificationMode(mode), amplification=20, co_wavelength=40.0, co_low=1.0,
+        co_high=5.0, levels=2, framerate=60.0)) for pm in (jparams, tparams)]
+
+    def run(chain, cfg):
+        return [np.asarray(chain.process(f, cfg)[0]) for f in frames]
+
+    def lsb(a, b):
+        d = np.abs(np.stack(a).astype(np.int16) - np.stack(b).astype(np.int16))
+        return int(d.max()), int((d > 1).sum())
+
+    jitted = run(JChain(), cfgs[0])
+    with jax.disable_jit():
+        op_by_op = run(JChain(), cfgs[0])
+    port = run(TChain(device="cpu"), cfgs[1])
+
+    def reference_lab(bgr):
+        with jax.disable_jit():
+            return torch.from_numpy(np.array(jcolor.bgr_to_lab(jnp.asarray(bgr.numpy()))))
+
+    monkeypatch.setattr(triesz if mode == "phase" else tmotion, "bgr_to_lab", reference_lab)
+    substituted = run(TChain(device="cpu"), cfgs[1])
+    print(f"{mode}: port vs jitted {lsb(port, jitted)}, jitted vs op by op "
+          f"{lsb(jitted, op_by_op)}, port vs op by op {lsb(port, op_by_op)}, with the "
+          f"reference's Lab {lsb(substituted, op_by_op)} (max LSB, values over 1)")
+    assert lsb(substituted, op_by_op)[0] <= 1

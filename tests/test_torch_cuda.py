@@ -844,6 +844,78 @@ def test_sharded_step_across_two_cards(cuda):
     assert launched == 4 * 2 * 17
 
 
+@pytest.mark.parametrize("mode", ["phase", "laplace", "color"])
+def test_row_sharded_step_on_the_card_equals_unsharded_and_the_cpu(cuda, mode):
+    """The row-sharded step (264x202 on 4 virtual shards of one card; 202 does
+    not lane-shard) against the unsharded step on the card: frames and state
+    bit for bit (on the card every element of a strip takes the whole
+    plane's code); against the same row-sharded step on the CPU: within one
+    LSB. Phase launches exactly ``row_stencil_launches(plan)`` a frame and
+    no K10; motion and colour launch no kernel."""
+    from live_video_magnification_tpu_torch.convert import (
+        sharded_color_state_to_jax,
+        sharded_motion_state_to_jax,
+        sharded_riesz_state_to_jax,
+        state_to_numpy,
+    )
+    from live_video_magnification_tpu_torch.models import color, motion, riesz
+    from live_video_magnification_tpu_torch.models.params import MagnificationMode
+    from live_video_magnification_tpu_torch.ops.hopper import halo, tail
+    from live_video_magnification_tpu_torch.ops.temporal import butterworth_bandpass_coeffs
+    from live_video_magnification_tpu_torch.parallel.mesh import make_mesh
+    from live_video_magnification_tpu_torch.parallel.row_sharded import row_stencil_launches
+    from live_video_magnification_tpu_torch.parallel.sharding import (
+        build_sharded_step,
+        sharded_plan,
+    )
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    m = MagnificationMode(mode)
+    h, w, fps = 264, 202, 8.0
+    levels = {"phase": 4, "laplace": 3, "color": 2}[mode]
+    c3 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32))
+    (b_lo, a_lo), (b_hi, a_hi) = (butterworth_bandpass_coeffs(0.5, fps),
+                                  butterworth_bandpass_coeffs(3.0, fps))
+    dyn = {"phase": riesz.RieszDynParams(30.0, float(np.float32(0.4 * np.pi)), c3(b_lo),
+                                         c3(a_lo), c3(b_hi), c3(a_hi), False, False),
+           "laplace": motion.MotionDynParams(15.0, 300.0, 0.2, 0.6, 0.5),
+           "color": color.ColorDynParams(80.0, 0.8, 1.5)}[mode]
+    if mode == "phase":
+        init = lambda: riesz.init_state(h, w, levels, device=cuda)
+        ref_step = lambda s, f: riesz.step(s, f, dyn, levels=levels)
+    elif mode == "laplace":
+        init = lambda: motion.init_state(h, w, 3, levels, device=cuda)
+        ref_step = lambda s, f: motion.step(s, f, dyn, levels=levels)
+    else:
+        init = lambda: color.init_state(h, w, 3, levels, fps, device=cuda)
+        ref_step = lambda s, f: color.step(s, f, dyn, levels=levels, framerate=fps)
+    card = make_mesh((1, 4), devices=[cuda] * 4)
+    step, state = build_sharded_step(card, m, 1, h, w, levels, fps)
+    cpu_step, cpu_state = build_sharded_step(make_mesh((1, 4), devices=["cpu"] * 4), m, 1, h, w,
+                                             levels, fps)
+    plan = sharded_plan(card, m, h, w, levels)
+    assert plan.axis == -2 and plan.sharded[0]
+    ref = init()
+    counts = (stencils.LAUNCHES, tail.LAUNCHES, halo.LAUNCHES)
+    frames = moving_clip(12 if mode == "color" else 4, h, w, seed=8)
+    for f in frames:
+        chw = torch.from_numpy(np.ascontiguousarray(f.transpose(2, 0, 1)))
+        before = [dict(c) for c in counts]
+        state, out = step(state, chw[None], dyn)
+        torch.cuda.synchronize(cuda)
+        launched = {k: c[k] - b[k] for c, b in zip(counts, before) for k in c if c[k] != b[k]}
+        want = row_stencil_launches(plan) if mode == "phase" else {}
+        assert launched == {k: v for k, v in want.items() if v}
+        ref, want_out = ref_step(ref, chw.to(cuda))
+        assert torch.equal(out[0], want_out)
+        cpu_state, cpu_out = cpu_step(cpu_state, chw[None], dyn)
+        assert int((out[0].cpu().to(torch.int16) - cpu_out[0].to(torch.int16)).abs().max()) <= 1
+    to_jax = {"phase": sharded_riesz_state_to_jax, "laplace": sharded_motion_state_to_jax,
+              "color": sharded_color_state_to_jax}[mode]
+    for a, b in zip(to_jax(state, plan), state_to_numpy(ref)):
+        np.testing.assert_array_equal(a[0], b)
+
+
 # ---------------------------------------------------------------- the time mesh
 
 def _time_mesh_runs(mode, levels, fps, t, devices, h=1080, w=1920):

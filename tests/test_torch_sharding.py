@@ -217,16 +217,6 @@ def test_plan_equals_reference_plan(n, force):
             assert got.sizes == tuple(tuple(s) for s in want.sizes)
 
 
-@pytest.mark.parametrize("mode,w", [(MagnificationMode.LAPLACE, 256),
-                                    (MagnificationMode.COLOR, 256),
-                                    (MagnificationMode.PHASE, 200)],
-                         ids=["laplace", "color", "phase-not-lane-shardable"])
-def test_sharded_step_raises_for_what_is_not_ported(mode, w):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md, queue 1 item 2\)$") as err:
-        build_sharded_step(_cpu_mesh((1, 8)), mode, 1, 64, w, 3)
-    assert "comes first" not in str(err.value)
-
-
 def test_phase_sharded_step_takes_the_lane_sharded_path():
     step, state = build_sharded_step(_cpu_mesh((1, 4)), MagnificationMode.PHASE, 1, 48, 128, 2)
     assert len(state) == 1 and len(state[0]) == 4
