@@ -141,7 +141,24 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      ``stop_recording`` and exported by ``Exporter`` (left-right, an
      in-memory writer in place of ``exporter.open_writer``: the card's
      machine has no cv2), every written frame bit for bit a fresh chain's
-     frames composed by ``compose``.
+     frames composed by ``compose``;
+ 13. the desktop front ends (``gui.py``, ``engine/gl_present.py``), which
+     launch only what the live path launches: ``gui_flow_1080p``, the GUI's
+     record -> export flow headless at 1080x1920 through its own functions
+     (the panel switched to phase at levels 6, ``record_start_guard``,
+     ``record_poll_transition``, ``record_stop_decision``,
+     ``build_export_config`` with the amplification edited, ``Exporter``
+     polled by ``export_poll_transition``), every written frame bit for bit
+     a fresh chain's and exactly ``stencil_launches`` a frame;
+     ``live_4k30_gui``, ``live_4k30`` with the GUI's canvas present
+     (``compose_view`` side by side, ``fit_view`` into 1280x720,
+     ``PhotoCodec.ppm``) on the 120 Hz display loop, run alternately with
+     the plain ``live_4k30``, twice: present ms (mean, p95, and its parts)
+     and frames presented beside each run's fps, drops and latency; and
+     ``gl_present``, ``GLDisplayLoop`` on a 1280x720 ``HeadlessGLContext``
+     against the live 1080p60 stream, where PyOpenGL imports and EGL makes a
+     context (else one line with "skipped" and the error): upload and paint
+     ms, frames displayed and skipped, the framebuffer read back.
 
 The second-to-last line is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}; every line before them carries the seconds
@@ -2652,12 +2669,16 @@ def engine_consumer_4k(torch, dev, st, tl, hl, h=2160, w=3840):
 
 
 def live_run(torch, dev, st, tl, hl, name, h, w, fps, seconds, mag, as_camera, roi=False,
-             native=False):
+             native=False, present=None, host_costs=True):
     """One PlaybackController run of a paced synthetic source, as bench.py's
     bench_streaming drives it (stats polled at 4 Hz, steady fps over the
-    second half), with a DisplayLoop polling the mailbox at 120 Hz."""
+    second half), with a DisplayLoop polling the mailbox at 120 Hz. With
+    ``present`` (``gui_present``), the loop composes the view side by side
+    and hands it to the GUI's canvas present; the row gets its times. With
+    ``host_costs``, the source's render and the consumer's copies are timed
+    alone after the run."""
     from live_video_magnification_tpu_torch.engine.controller import PlaybackController
-    from live_video_magnification_tpu_torch.engine.display import DisplayLoop
+    from live_video_magnification_tpu_torch.engine.display import DisplayLoop, ViewMode
     from live_video_magnification_tpu_torch.engine.native import NativeFramePoolAdapter
     from live_video_magnification_tpu_torch.engine.pool import FramePool
     from live_video_magnification_tpu_torch.models.chain import preprocess_geometry
@@ -2678,7 +2699,11 @@ def live_run(torch, dev, st, tl, hl, name, h, w, fps, seconds, mag, as_camera, r
     ctrl.set_magnification(mag)
     if roi:
         ctrl.set_downscale(2)
-    display = DisplayLoop(ctrl.mailbox, ctrl.instr, render=None, poll_hz=120.0)
+    if present is None:
+        display = DisplayLoop(ctrl.mailbox, ctrl.instr, poll_hz=120.0)
+    else:
+        display = present.attach(DisplayLoop(ctrl.mailbox, ctrl.instr, render=present.render,
+                                             poll_hz=120.0, view_mode=ViewMode.SIDE_BY_SIDE))
     try:
         if not ctrl.open_synthetic(h=h, w=w, fps=fps, as_camera=as_camera):
             raise AssertionError(f"{name}: the synthetic source did not open")
@@ -2722,8 +2747,11 @@ def live_run(torch, dev, st, tl, hl, name, h, w, fps, seconds, mag, as_camera, r
                proc_errors=final.proc_errors, read_errors=final.read_errors,
                sampled_frames=sampled, not_magnified=not_magnified,
                stencil_launches_per_frame={k: v / max(final.processed, 1)
-                                           for k, v in launched.items() if v},
-               **render_ms(h, w, fps), **consumer_copies_ms(torch, dev, h, w, oh, ow))
+                                           for k, v in launched.items() if v})
+    if present is not None:
+        row.update(present.stats())
+    if host_costs:
+        row.update(**render_ms(h, w, fps), **consumer_copies_ms(torch, dev, h, w, oh, ow))
     log(**row)
     if final.proc_errors or final.read_errors:
         raise AssertionError(f"{name}: {final.proc_errors} processing and "
@@ -2736,17 +2764,46 @@ def live_run(torch, dev, st, tl, hl, name, h, w, fps, seconds, mag, as_camera, r
     return row
 
 
+def live_4k30_runs(torch, dev, st, tl, hl):
+    """live_4k30 and live_4k30_gui (the GUI's canvas present on the display
+    loop) alternately, twice; the first run also times the host's costs."""
+    return [live_run(torch, dev, st, tl, hl, "live_4k30_gui" if gui else "live_4k30",
+                     2160, 3840, 30.0, LIVE_S, live_params(6, 30.0), as_camera=True,
+                     present=gui_present() if gui else None, host_costs=run == 0 and not gui)
+            for run in range(2) for gui in (False, True)]
+
+
 def live_phases(torch, dev, st, tl, hl):
-    """live_4k30, live_1080p60 and config 4 on both transports."""
-    rows = [live_run(torch, dev, st, tl, hl, "live_4k30", 2160, 3840, 30.0, LIVE_S,
-                     live_params(6, 30.0), as_camera=True),
-            live_run(torch, dev, st, tl, hl, "live_1080p60", 1080, 1920, 60.0, LIVE_S,
-                     live_params(6, 60.0), as_camera=True)]
+    """The live_4k30 runs, live_1080p60, config 4 on both transports."""
+    rows = live_4k30_runs(torch, dev, st, tl, hl)
+    rows.append(live_run(torch, dev, st, tl, hl, "live_1080p60", 1080, 1920, 60.0, LIVE_S,
+                         live_params(6, 60.0), as_camera=True))
     for native in (False, True):
         rows.append(live_run(torch, dev, st, tl, hl, "live_1080p60_roi", 1080, 1920, 60.0,
                              LIVE_ROI_S, config4_params(60.0), as_camera=False, roi=True,
                              native=native))
     return rows
+
+
+@contextlib.contextmanager
+def memory_writer(written):
+    """``exporter.open_writer`` replaced by a writer that keeps each canvas
+    (the card's machine has no cv2)."""
+    import live_video_magnification_tpu_torch.export.exporter as exporter
+
+    class Memory:
+        def write(self, canvas):
+            written.append(canvas.copy())
+
+        def release(self):
+            pass
+
+    saved = exporter.open_writer
+    exporter.open_writer = lambda fmt, path, fps, size_wh: (Memory(), path, "memory")
+    try:
+        yield
+    finally:
+        exporter.open_writer = saved
 
 
 def record_export_1080p(torch, dev, st, tl, hl, h=1080, w=1920):
@@ -2784,20 +2841,7 @@ def record_export_1080p(torch, dev, st, tl, hl, h=1080, w=1920):
                              f"{stats.proc_errors} processing / {stats.read_errors} read errors")
 
     written = []
-
-    class MemoryWriter:
-        def write(self, canvas):
-            written.append(canvas.copy())
-
-        def release(self):
-            pass
-
-    def memory_writer(fmt, path, fps_, size_wh):
-        return MemoryWriter(), path, "memory"
-
-    saved = exporter.open_writer
-    exporter.open_writer = memory_writer
-    try:
+    with memory_writer(written):
         reset_counts(st, tl, hl)
         exp = exporter.Exporter(device=dev)
         t0 = time.perf_counter()
@@ -2805,8 +2849,6 @@ def record_export_1080p(torch, dev, st, tl, hl, h=1080, w=1920):
             config=cfg, output_path="record_export_1080p.avi", split=SplitMode.LEFT_RIGHT))
         exp.join(timeout=300.0)
         seconds = time.perf_counter() - t0
-    finally:
-        exporter.open_writer = saved
     p = exp.progress()
     launched = launch_counts(st, tl, hl)
     if p.phase is not ExportPhase.DONE or not p.frames_done == len(written) == len(frames):
@@ -2828,6 +2870,313 @@ def record_export_1080p(torch, dev, st, tl, hl, h=1080, w=1920):
                export_fps=len(frames) / seconds, canvas=list(written[0].shape),
                bit_equal_to_chain=True, proc_errors=0, read_errors=0,
                stencil_launches_per_frame={k: v / len(frames) for k, v in launched.items() if v})
+    log(**row)
+    return row
+
+
+# ---------------------------------------------------------------- the desktop front ends
+
+GUI_CANVAS = (1280, 720)   # the canvas the GUI's present fits the view into
+GUI_RECORD_S = 1.5         # seconds recorded in gui_flow_1080p
+GL_S = 4.0                 # seconds of the gl_present run
+
+
+def card_name(torch, dev):
+    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+class gui_present:
+    """The GUI's canvas present, ``gui.py::MainWindow._poll_display``, on a
+    ``DisplayLoop`` thread: ``attach`` times the loop's ``poll_once`` (the
+    mailbox read and ``compose_view``), ``render`` the rest of the body,
+    ``fit_view`` into ``canvas`` (``display_fit`` and the nearest-neighbour
+    index resize) and ``PhotoCodec.ppm``. tk's PhotoImage and canvas calls
+    are left out (no display there). Host clock."""
+
+    def __init__(self, canvas=GUI_CANVAS):
+        from live_video_magnification_tpu_torch.gui import PhotoCodec
+
+        self.canvas, self.codec, self.nbytes = canvas, PhotoCodec(), 0
+        self.ms = {"compose": [], "fit": [], "ppm": []}
+
+    def attach(self, display):
+        poll = display.poll_once
+
+        def timed_poll():
+            t0 = time.perf_counter()
+            view = poll()
+            if view is not None:
+                self.ms["compose"].append(1e3 * (time.perf_counter() - t0))
+            return view
+
+        display.poll_once = timed_poll
+        return display
+
+    def render(self, view):
+        from live_video_magnification_tpu_torch.gui import fit_view
+
+        t0 = time.perf_counter()
+        fitted, _geom = fit_view(view, *self.canvas)
+        t1 = time.perf_counter()
+        self.nbytes = len(self.codec.ppm(fitted))
+        t2 = time.perf_counter()
+        self.ms["fit"].append(1e3 * (t1 - t0))
+        self.ms["ppm"].append(1e3 * (t2 - t1))
+
+    def stats(self):
+        n = min(len(v) for v in self.ms.values())
+        parts = {k: np.asarray(v[:n] or [np.nan]) for k, v in self.ms.items()}
+        total = parts["compose"] + parts["fit"] + parts["ppm"]
+        return dict(present_canvas=list(self.canvas), presented=len(self.ms["ppm"]),
+                    present_ms_mean=float(total.mean()),
+                    present_ms_p95=float(np.percentile(total, 95)),
+                    present_ms_max=float(total.max()),
+                    **{f"{k}_ms_mean": float(v.mean()) for k, v in parts.items()},
+                    present_ppm_bytes=self.nbytes)
+
+
+def gui_params(mode, fps=30.0, **edits):
+    """``MainWindow.on_mode_change`` then ``push_params`` (gui.py), headless:
+    the mode's defaults as the panel's variables hold them, ``edits`` made
+    on the panel's sliders (UI units), the Capture FPS slider at ``fps``,
+    the Nyquist clamp, and the band slider's clamp, snap and gap on
+    [0.05, fps/2]; returns the MagnificationParams the controller gets."""
+    import dataclasses
+
+    from live_video_magnification_tpu_torch.gui import slider_enforce_gap, slider_snap
+    from live_video_magnification_tpu_torch.models.params import (
+        clamp_band_to_nyquist,
+        defaults_for,
+        to_params,
+    )
+
+    panel = dataclasses.replace(defaults_for(mode), **edits)
+    ui = defaults_for(mode)
+    ui.amplification = int(panel.amplification)
+    ui.wavelength = float(panel.wavelength)
+    ui.low, ui.high = float(panel.low), float(panel.high)
+    ui.chroma = int(panel.chroma)
+    ui.levels = int(panel.levels)
+    ui.capture_fps = float(fps)
+    clamp_band_to_nyquist(ui)
+    top = max(0.1, ui.capture_fps / 2.0)
+    low, high = (slider_snap(min(max(v, 0.05), top), 0.05) for v in (ui.low, ui.high))
+    if high < low:
+        low, high = high, low
+    ui.low, ui.high = slider_enforce_gap(low, high, 0.05, 0.05, top, "low")
+    return to_params(ui)
+
+
+def gui_record_flow(torch, dev, h, w, fps=30.0, seconds=GUI_RECORD_S, levels=6, modules=()):
+    """The GUI's record -> export flow, headless, through its own functions:
+    the panel switched to phase (``gui_params``, levels ``levels``) on a
+    synthetic camera, REC through ``record_start_guard``, polled by
+    ``record_poll_transition`` every ``ExportProgressDialog.POLL_MS`` until
+    ``seconds`` pass, stopped (the guard's "stop") and sent to the settings by
+    ``record_stop_decision``; the export's config by ``build_export_config``
+    from the raw live state with the amplification edited away from it,
+    split side by side without labels; playback paused as the GUI does; the
+    ``Exporter`` over ``BufferExportFrameSource`` into an in-memory writer,
+    polled by ``export_poll_transition`` to "finish". Every written frame
+    must equal bit for bit a fresh chain's frames under the export's config
+    composed by ``compose``; with ``modules``, the export's launches must be
+    exactly ``stencil_launches`` a frame. Returns the numbers."""
+    import live_video_magnification_tpu_torch.export.exporter as exporter
+    from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+    from live_video_magnification_tpu_torch.engine.processing import hwc_result
+    from live_video_magnification_tpu_torch.export.sources import BufferExportFrameSource
+    from live_video_magnification_tpu_torch.export.types import (
+        ExportFormat,
+        ExportRequest,
+        SplitMode,
+        validate_request,
+    )
+    from live_video_magnification_tpu_torch.gui import (
+        ExportProgressDialog,
+        build_export_config,
+        export_poll_transition,
+        record_poll_transition,
+        record_start_guard,
+        record_stop_decision,
+    )
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.models.params import MagnificationMode, to_ui
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+
+    poll_s = ExportProgressDialog.POLL_MS / 1e3
+    written = []
+    ctrl = PlaybackController(device=dev)
+    try:
+        ctrl.set_magnification(gui_params(MagnificationMode.PHASE, fps, levels=levels))
+        if not ctrl.open_synthetic(h=h, w=w, fps=fps, as_camera=True):
+            raise AssertionError("gui_flow: the synthetic camera did not open")
+        ctrl.play()
+        if record_start_guard(False, False) != "begin":
+            raise AssertionError("gui_flow: record_start_guard refused to begin")
+        buf = ctrl.start_recording()
+        t0, polls = time.monotonic(), 0
+        while record_poll_transition(buf.limit_reached) == "continue" \
+                and time.monotonic() - t0 < seconds:
+            time.sleep(poll_s)
+            polls += 1
+        if record_start_guard(True, False) != "stop":
+            raise AssertionError("gui_flow: record_start_guard did not stop")
+        frames = ctrl.stop_recording()
+        if record_stop_decision(len(frames)) != "open_settings":
+            raise AssertionError("gui_flow: nothing recorded")
+        live = ctrl.config_snapshot(raw_mode=True)
+        ui = to_ui(live.magnification)
+        ui.amplification += 30
+        cfg = build_export_config(live, ui, downscale=live.preprocess.downscale,
+                                  use_roi=live.preprocess.roi_enabled,
+                                  grayscale=live.grayscale)
+        if cfg.magnification == live.magnification or cfg.magnification.levels != levels:
+            raise AssertionError(f"gui_flow: export config {cfg.magnification} against the "
+                                 f"live {live.magnification}")
+        req = ExportRequest(config=cfg, output_path=os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "gui_flow.avi"),
+            file_fps=ctrl.reported_fps() or 30.0, split=SplitMode.LEFT_RIGHT,
+            text_overlay=False, format=ExportFormat.AVI_MJPG)
+        problems = validate_request(req, len(frames))
+        if problems:
+            raise AssertionError(f"gui_flow: request refused: {problems}")
+        ctrl.pause()  # the GUI pauses the camera while it exports
+        # the consumer drains its queue, so no live frame's launch counts as the export's
+        settled, deadline = -1, time.monotonic() + 10.0
+        while (settled != (s := ctrl.stats()).processed + s.proc_errors or s.queue_depth) \
+                and time.monotonic() < deadline:
+            settled = s.processed + s.proc_errors
+            time.sleep(3 * poll_s)
+        reset_counts(*modules)
+        with memory_writer(written):
+            exp = exporter.Exporter(device=ctrl.device)
+            t1 = time.perf_counter()
+            exp.start(BufferExportFrameSource(frames), req, ctrl.mailbox)
+            deadline = time.monotonic() + 300.0
+            while True:
+                p = exp.progress()
+                action, text = export_poll_transition(p.phase, p.frames_done, p.frames_total,
+                                                      p.error)
+                if action == "finish" or time.monotonic() > deadline:
+                    break
+                time.sleep(poll_s)
+            export_s = time.perf_counter() - t1
+            exp.join(timeout=5.0)
+        launched = launch_counts(*modules)
+    finally:
+        ctrl.close()
+    if text != f"Done — {len(frames)} frames written" or len(written) != len(frames):
+        raise AssertionError(f"gui_flow: export finished with {text!r}, "
+                             f"{len(written)} of {len(frames)} written")
+    chain = MagnificationChain(device=dev)
+    for i, f in enumerate(frames):
+        processed, original = (hwc_result(t) for t in chain.process(f, cfg))
+        ref = exporter.compose(original, processed, SplitMode.LEFT_RIGHT, False)
+        if not np.array_equal(written[i], ref):
+            raise AssertionError(f"gui_flow: written frame {i} is not the fresh chain's")
+        if i > 0 and np.array_equal(processed, original):
+            raise AssertionError(f"gui_flow: frame {i} not magnified")
+    levels_run = chain._key.levels
+    if modules:
+        want = {k: 0 for k in launched}
+        want.update({k: v * len(frames) for k, v in stencil_launches(h, w, levels_run).items()})
+        if launched != want:
+            raise AssertionError(f"gui_flow: launches {launched}, expected {want}")
+    return dict(shape=[h, w], levels=levels_run, record_seconds=seconds, record_polls=polls,
+                frames=len(frames), export_seconds=export_s, export_fps=len(frames) / export_s,
+                live_amplification=live.magnification.amplification,
+                export_amplification=cfg.magnification.amplification,
+                canvas=list(written[0].shape), bit_equal_to_chain=True,
+                stencil_launches_per_frame={k: v / len(frames)
+                                            for k, v in launched.items() if v})
+
+
+def gui_flow_1080p(torch, dev, st, tl, hl, h=1080, w=1920):
+    row = gui_record_flow(torch, dev, h, w, modules=(st, tl, hl))
+    log(phase="gui_flow_1080p", card=card_name(torch, dev), **row)
+    return row
+
+
+def gl_present(torch, dev, st, tl, hl, h=1080, w=1920, fps=60.0, seconds=GL_S,
+               canvas=GUI_CANVAS):
+    """``GLDisplayLoop`` on a ``HeadlessGLContext`` of ``canvas`` against a
+    live ``PlaybackController`` stream (phase, levels 6, a synthetic camera),
+    where GL exists: skipped, with the error, when PyOpenGL does not import
+    or EGL makes no context; any later failure fails. Upload ms a frame
+    (``glTexImage2D`` / ``glTexSubImage2D`` by the host clock), paint ms,
+    frames displayed and skipped; the framebuffer (``read_pixels``) must hold
+    the last uploaded frame letterboxed, its mean colour within 3 levels."""
+    try:
+        import OpenGL  # noqa: F401
+
+        from live_video_magnification_tpu_torch.engine import gl_present as glp
+
+        ctx = glp.HeadlessGLContext(*canvas)
+    except Exception as e:  # noqa: BLE001 - no GL on this machine: reported, not hidden
+        row = dict(phase="gl_present", skipped=f"{type(e).__name__}: {e}")
+        log(**row)
+        return row
+    from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+
+    timed = dict(upload=[], paint=[], last=None)
+
+    class TimedPresenter(glp.GLPresenter):
+        def _upload(self, img, tex):
+            t0 = time.perf_counter()
+            super()._upload(img, tex)
+            timed["upload"].append(1e3 * (time.perf_counter() - t0))
+            timed["last"] = img
+
+        def paint(self, pair, fb_w, fb_h):
+            t0 = time.perf_counter()
+            fresh = super().paint(pair, fb_w, fb_h)
+            if fresh:
+                timed["paint"].append(1e3 * (time.perf_counter() - t0))
+            return fresh
+
+    saved = glp.GLPresenter
+    glp.GLPresenter = TimedPresenter
+    try:
+        ctx.release_current()  # the loop's thread takes the context
+        ctrl = PlaybackController(device=dev)
+        try:
+            ctrl.set_magnification(live_params(6, fps))
+            loop = glp.GLDisplayLoop(ctrl.mailbox, ctrl.instr, ctx, poll_hz=120.0)
+            if not ctrl.open_synthetic(h=h, w=w, fps=fps, as_camera=True):
+                raise AssertionError("gl_present: the synthetic camera did not open")
+            ctrl.play()
+            loop.start()
+            try:
+                time.sleep(seconds)
+            finally:
+                loop.stop()
+        finally:
+            ctrl.close()
+        s = ctrl.instr.snapshot()
+        ctx.make_current()
+        out = ctx.read_pixels()
+    finally:
+        glp.GLPresenter = saved
+        ctx.make_current()
+        ctx.destroy()
+    last = timed["last"]
+    if s.displayed < 2 or last is None or s.proc_errors:
+        raise AssertionError(f"gl_present: {s.displayed} displayed, {s.proc_errors} errors")
+    x, y, vw, vh = glp.letterbox(last.shape[1], last.shape[0], 0, 0, *canvas)
+    inside = out[y:y + vh, x:x + vw].reshape(-1, 3).mean(0)
+    want = last.reshape(-1, 3)[:, ::-1].mean(0)  # BGR -> RGB
+    bars = np.concatenate([out[:y].reshape(-1, 3), out[y + vh:].reshape(-1, 3),
+                           out[:, :x].reshape(-1, 3), out[:, x + vw:].reshape(-1, 3)])
+    if np.abs(inside - want).max() > 3.0 or (bars.size and bars.max() != 0):
+        raise AssertionError(f"gl_present: framebuffer mean {inside} against the frame's "
+                             f"{want}, bars max {bars.max() if bars.size else 0}")
+    up, paint = np.asarray(timed["upload"]), np.asarray(timed["paint"])
+    row = dict(phase="gl_present", card=card_name(torch, dev), source=[h, w], fps=fps,
+               canvas=list(canvas), seconds=seconds, processed=s.processed,
+               displayed=s.displayed, display_skipped=s.display_skipped, uploads=len(up),
+               upload_ms_mean=float(up.mean()), upload_ms_p95=float(np.percentile(up, 95)),
+               paint_ms_mean=float(paint.mean()), viewport=[x, y, vw, vh],
+               framebuffer_mean_rgb=inside.tolist(), frame_mean_rgb=want.tolist())
     log(**row)
     return row
 
@@ -2912,6 +3261,8 @@ def main() -> int:
     engine_consumer_4k(torch, dev, st, tl, hl)
     live_phases(torch, dev, st, tl, hl)
     record_export_1080p(torch, dev, st, tl, hl)
+    gui_flow_1080p(torch, dev, st, tl, hl)
+    gl_present(torch, dev, st, tl, hl)
 
     path = lambda name: " ".join(f"{k}={v}" for k, v in CONFIGS[name][0].items()) or "defaults"
     level0 = lambda rows, k: next(r for r in rows if r["kernel"] == k and r["level"] == 0

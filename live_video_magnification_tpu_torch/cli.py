@@ -14,7 +14,9 @@ chunks (motion, colour or phase; frame by frame, or each chunk at once under
 checkpoints and resume. ``live`` runs the streaming engine
 (``engine/controller.py::PlaybackController``: a camera, a file or, when
 neither is given, a synthetic source -> queue -> chain -> mailbox) and prints
-its stats line; ``record`` records a camera (or a synthetic camera) losslessly
+its stats line (with ``--gl``, also a glfw window that presents the mailbox
+through ``engine/gl_present.py``'s ``GLPresenter`` in the ``--view`` layout;
+without a display or GL it continues stats-only); ``record`` records a camera (or a synthetic camera) losslessly
 into RAM and then exports it magnified through ``export/exporter.py::Exporter``;
 ``cameras`` lists the capture devices.
 
@@ -31,9 +33,8 @@ every process (``parallel/batch_export.py``); start one process per host or
 card with COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID set
 (``parallel/distributed.py``), or one process alone for its own devices.
 
-Not ported yet (ROADMAP.md): ``live --gl`` / ``--view`` (the GL present path,
-queue 1 item 3), which the port refuses with an error, and the ``bench``
-command (the port's bench is the "port bench" item of "What comes next").
+Not ported yet (ROADMAP.md): the ``bench`` command (the port's bench is the
+"port bench" item of "What comes next").
 """
 
 from __future__ import annotations
@@ -345,10 +346,6 @@ def _concat_resumed_parts(output: str, fps: float | None = None) -> None:
     print(f"auto-concatenated {len(ordered)} parts into {final}", file=sys.stderr)
 
 
-GL_NOT_PORTED = ("live --gl / --view need the GL present path (engine/gl_present.py), "
-                 "which is not ported yet (ROADMAP.md, queue 1 item 3)")
-
-
 def _controller(args):
     """(a PlaybackController on ``--device`` set to the CLI's grayscale and
     magnification parameters, that configuration), or (None, None) after
@@ -367,9 +364,6 @@ def _controller(args):
 
 
 def cmd_live(args) -> int:
-    if args.gl or args.view is not None:
-        print(f"error: {GL_NOT_PORTED}", file=sys.stderr)
-        return 2
     _apply_fast_mode(args)
     from live_video_magnification_tpu_torch.engine.instrumentation import (
         camera_health,
@@ -379,6 +373,7 @@ def cmd_live(args) -> int:
     ctrl, _ = _controller(args)
     if ctrl is None:
         return 1
+    gl_ctx = gl_presenter = None
     try:
         if args.camera is not None:
             ok = ctrl.open_camera(args.camera)
@@ -392,10 +387,42 @@ def cmd_live(args) -> int:
         if args.playback_fps is not None and not ctrl.is_camera:
             # file-source pacing override (reference StatusStrip.cpp:122-158)
             ctrl.set_playback_fps(args.playback_fps)
+
+        # --gl: the GL-class present path (DisplayWidget.cpp semantics) in a
+        # glfw window; runs on the MAIN thread (window-system requirement)
+        # with stats interleaved. Without a usable display the run degrades
+        # to stats-only; the chain stays on --device either way.
+        if args.gl:
+            try:
+                from live_video_magnification_tpu_torch.engine.display import ViewMode
+                from live_video_magnification_tpu_torch.engine.gl_present import (
+                    GLPresenter,
+                    WindowGLContext,
+                )
+
+                gl_ctx = WindowGLContext(960, 540, title="lvmt live")
+                gl_presenter = GLPresenter(ctrl.instr, view_mode=ViewMode(args.view))
+            except Exception as e:  # no display / no GL driver
+                print(f"--gl unavailable ({e}); continuing stats-only", file=sys.stderr)
+                if gl_ctx is not None:  # window opened but the GL init failed
+                    gl_ctx.destroy()
+                gl_ctx = gl_presenter = None
+
         ctrl.play()
         end = time.monotonic() + args.duration
+        next_stat = 0.0
         while time.monotonic() < end:
-            time.sleep(min(0.25, max(0.0, end - time.monotonic())))
+            if gl_ctx is not None:
+                if gl_ctx.should_close():
+                    break
+                gl_presenter.paint(ctrl.mailbox.latest(), gl_ctx.width, gl_ctx.height)
+                gl_ctx.swap()  # vsync paces the present rate
+            else:
+                time.sleep(min(0.25, max(0.0, end - time.monotonic())))
+            now = time.monotonic()
+            if now < next_stat:
+                continue
+            next_stat = now + 0.25
             s = ctrl.stats()
             health = (
                 camera_health(s.drop_fraction) if ctrl.is_camera
@@ -411,6 +438,10 @@ def cmd_live(args) -> int:
         pass
     finally:
         print(file=sys.stderr)
+        if gl_presenter is not None:
+            gl_presenter.destroy()
+        if gl_ctx is not None:
+            gl_ctx.destroy()
         ctrl.close()
     return 0
 
@@ -535,10 +566,12 @@ def main(argv=None) -> int:
     p.add_argument("--duration", type=float, default=10.0)
     p.add_argument("--playback-fps", type=float, default=None,
                    help="override file-source playback pacing (ignored for cameras)")
-    p.add_argument("--gl", action="store_true", help="not ported yet: refused")
-    p.add_argument("--view", default=None,
+    p.add_argument("--gl", action="store_true",
+                   help="present in a GL window (glfw; falls back to "
+                        "stats-only without a display)")
+    p.add_argument("--view", default="processed",
                    choices=["processed", "original", "side-by-side", "top-bottom"],
-                   help="--gl view mode; not ported yet: refused")
+                   help="--gl view mode (DisplayWidget pane layouts)")
     _add_mag_args(p)
     p.set_defaults(fn=cmd_live)
 

@@ -337,7 +337,14 @@ def test_cameras_lists_capture_devices(capsys):
 
 @pytest.mark.parametrize("flags", [["--gl"], ["--view", "side-by-side"]])
 def test_live_gl_is_refused_with_the_roadmap_item(flags, capsys):
-    assert tcli.main(["live", "--device", "cpu", "--duration", "1"] + flags) == 2
+    """``live --gl`` / ``--view`` run as the reference's: without a display
+    ``--gl`` prints its "--gl unavailable" line and runs stats-only on the
+    chain's own device; ``--view`` is accepted. (The name is from the slice
+    that refused both.)"""
+    assert tcli.main(["live", "--device", "cpu", "--duration", "1", "--size", "32", "48"]
+                     + flags) == 0
     err = capsys.readouterr().err
-    assert "engine/gl_present.py" in err and "ROADMAP.md, queue 1 item 3" in err
+    assert "ROADMAP" not in err and "fps=" in err and "errors=0" in err
+    if flags == ["--gl"] and not os.environ.get("DISPLAY"):
+        assert "--gl unavailable (" in err and "); continuing stats-only" in err
     assert not [t for t in threading.enumerate() if t.name == "ProcessingChain"]

@@ -1061,3 +1061,27 @@ def test_exporter_on_the_card_writes_the_chains_frames(cuda, monkeypatch):
         processed, original = (hwc_result(x) for x in chain.process(f, cfg))
         want = texporter.compose(original, processed, SplitMode.LEFT_RIGHT, False)
         np.testing.assert_array_equal(written[i], want, err_msg=f"frame {i}")
+
+
+def test_gui_record_flow_on_the_card_equals_a_fresh_chain(cuda):
+    """The GUI's record -> export flow, headless (``chip_smoke.py``'s
+    ``gui_record_flow``, the ``gui_flow_1080p`` phase at 270x480): the panel
+    switched to phase at levels 6, a synthetic camera recorded and exported
+    with an edited amplification by ``Exporter(device="cuda")``; every
+    written frame bit for bit a fresh chain's (checked inside) and exactly
+    ``stencil_launches`` a frame."""
+    import sys
+    from pathlib import Path
+
+    from live_video_magnification_tpu_torch.ops.hopper import halo, tail
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    row = chip_smoke.gui_record_flow(torch, cuda, 270, 480, seconds=1.0,
+                                     modules=(stencils, tail, halo))
+    assert row["bit_equal_to_chain"] and row["frames"] >= 5
+    assert row["export_amplification"] == row["live_amplification"] + 30
+    assert row["stencil_launches_per_frame"] == {
+        k: float(v) for k, v in stencil_launches(270, 480, row["levels"]).items() if v}

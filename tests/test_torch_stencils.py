@@ -167,8 +167,10 @@ def test_port_imports_no_jax_and_nothing_of_the_reference_package():
         if name not in CV2_AT_CALL:
             hits += [m.group(0).strip() for m in cv2_in_a_call.finditer(text)]
         assert not hits, f"{name} imports {hits}"
-    # every module of the port imports where cv2 is missing
-    probe = ("import importlib, pkgutil, sys; sys.modules['cv2'] = None; "
+    # every module of the port imports where cv2, tk and the GL packages are
+    # missing (the front ends import them inside the calls that use them)
+    probe = ("import importlib, pkgutil, sys; "
+             "sys.modules.update(dict.fromkeys(['cv2', 'tkinter', 'OpenGL', 'glfw'])); "
              "import live_video_magnification_tpu_torch as p; "
              "[importlib.import_module(m.name) for m in "
              "pkgutil.walk_packages(p.__path__, p.__name__ + '.')]; "
