@@ -43,6 +43,17 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      kernels per frame; for level also ClipProcessor against the chain and a
      profiler breakdown; then every configuration, jnp included, timed again
      in the reverse order;
+  4b. the port's bench (``bench.py``) through ``cli.main(["bench", ...])`` in
+     this process (``port_bench``): the 4K headline with ``fast_mode_fps``,
+     then ``--matrix`` into a temporary file, every JSON line it prints
+     logged; no entry may fail (the GL entry is "skipped" only where no GL
+     context can be made); the launches a frame of every kernel in each of
+     its loops and sharded calls as derived (the headline's default and
+     fast runs as the 4K slice's jnp and fast runs, K5 once a frame in
+     the matrix's 1080p phase entry, K10 as the plan's exchanges); the
+     headline's warm checksum equal to a plain loop of
+     ``models/riesz.py::step`` over the same 8 frames; slice_4k's ms/frame
+     logged beside the headline's;
   5. slice on the card against the CPU: 1080x1920, levels=6, >= 40 dB a
      frame, under the jnp and the level tails (K5 launched once a frame, at
      level 4) and under the fast flags;
@@ -267,6 +278,7 @@ HALO_SOURCE = "live_video_magnification_tpu_torch/ops/hopper/csrc/halo.cu"
 HALO_REPLACES = "live_video_magnification_tpu/parallel/halo.py:152"
 SHARDED_TAIL = "mxu"  # the tail of the sharded runs: K6 on every sharded level
 SHARDED_FRAMES = 6   # of the 4K clip, for the lane-sharded cell
+BENCH_STEPS = 8      # --steps of the port bench's runs: a warm loop and three timed, each 8 frames
 
 
 _T0 = time.perf_counter()
@@ -938,7 +950,7 @@ def slice_4k(torch, dev, st, tl, frames):
         # where the device time goes, over two steady frames of the chain
         prof = profile_chain(torch, chain, frames[:2], cfg)
         log(phase="profile_4k", card=torch.cuda.get_device_name(dev), **prof)
-    return launches, frames, chain_out
+    return launches, frames, chain_out, steady_ms
 
 
 def frame_stats(out, ref):
@@ -1012,6 +1024,159 @@ def slice_4k_tails(torch, dev, st, tl, frames, jnp_out):
             chain_steady_ms_per_frame=steady_ms, chain_steady_fps=1e3 / steady_ms,
             peak_memory_bytes=peak)
     return runs
+
+
+def bench_expected(call, steps, *modules):
+    """Every launch count of the modules for one bench loop ``call`` (mode,
+    h, w, levels, flags): four runs of ``steps`` frames; the fast flags at
+    4K as the 4K slice's fast run, else the default path's stencils
+    (``tp_expected``: phase's f32 stencils, motion and colour none)."""
+    frames = 4 * steps
+    if call["flags"] == {**FLAG_DEFAULTS, **FAST_ENV}:
+        if (call["h"], call["w"], call["levels"]) != (2160, 3840, 6):
+            raise AssertionError(f"port bench: a fast run at {call} has no derived count")
+        return expected_counts(frames, CONFIGS["fast"][1], *modules)
+    if call["flags"] != FLAG_DEFAULTS:
+        raise AssertionError(f"port bench: a loop ran under {call['flags']}")
+    return tp_expected(call["mode"], frames, call["h"], call["w"], call["levels"], *modules)
+
+
+def port_bench(torch, dev, st, tl, hl, jnp_ms, steps=BENCH_STEPS):
+    """The port's bench through its CLI in this process: the 4K headline
+    (``fast_mode_fps`` beside it), then ``--matrix`` into a temporary file.
+    Each of its loops and sharded calls runs with the counts set to 0 just
+    before it and read just after. Returns the launches of each call."""
+    import io
+    import re
+    import tempfile
+
+    from live_video_magnification_tpu_torch import bench, cli
+    from live_video_magnification_tpu_torch.engine.gl_present import gl_available
+    from live_video_magnification_tpu_torch.models import riesz
+    from live_video_magnification_tpu_torch.parallel.riesz_sharded import make_plan
+
+    modules = (st, tl, hl)
+    calls = []
+
+    def counted(fn, kind):
+        def run(*args, **kw):
+            reset_counts(*modules)
+            r = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls.append(dict(kind=kind, args=args,
+                              kwargs={k: v for k, v in kw.items() if k != "device"},
+                              flags={k: os.environ.get(k) for k in FLAG_DEFAULTS},
+                              launches=launch_counts(*modules)))
+            return r
+        return run
+
+    class Lines(io.TextIOBase):
+        """The bench's standard output: each JSON line logged as it comes."""
+
+        def __init__(self, name, out):
+            self.name, self.out, self.buf, self.lines = name, out, "", []
+
+        def write(self, text):
+            self.buf += text
+            while "\n" in self.buf:
+                line, self.buf = self.buf.split("\n", 1)
+                if line.startswith("{"):
+                    self.lines.append(json.loads(line))
+                    with contextlib.redirect_stdout(self.out):
+                        log(phase="port_bench", run=self.name, **self.lines[-1])
+            return len(text)
+
+    def run_cli(name, argv):
+        out, err = Lines(name, sys.stdout), io.StringIO()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["bench", *argv])
+        lines = out.lines
+        if rc != 0:
+            raise AssertionError(f"port bench {name}: exit {rc}; stderr {err.getvalue()[-2000:]}")
+        return lines, err.getvalue()
+
+    saved = {k: getattr(bench, k) for k in ("bench_mode_scan", "bench_time_parallel",
+                                             "bench_sharded_step")}
+    for k, fn in saved.items():
+        setattr(bench, k, counted(fn, k))
+    try:
+        with flag_env({}):
+            t0 = time.perf_counter()
+            (headline,), err = run_cli("headline", ["--steps", str(steps)])
+            headline_s = time.perf_counter() - t0
+            head_calls = list(calls)
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as tmp:
+                matrix, _ = run_cli("matrix", ["--matrix", "--steps", str(steps), "--out",
+                                               os.path.join(tmp, "matrix.json")])
+            matrix_s = time.perf_counter() - t0
+    finally:
+        for k, fn in saved.items():
+            setattr(bench, k, fn)
+
+    failed = [e for e in matrix if "error" in e]
+    if failed or "fast_mode_fps" not in headline:
+        raise AssertionError(f"port bench: failed entries {failed}, headline {headline}")
+    gl = next(e for e in matrix if e["metric"] == "display_present_gl_1080p")
+    if ("skipped" in gl) == gl_available():
+        raise AssertionError(f"port bench: the GL entry {gl} with gl_available() "
+                             f"{gl_available()}")
+
+    # every loop's and sharded call's launches, against their derivation
+    per_call = []
+    for call in calls:
+        launches = call["launches"]
+        if call["kind"] == "bench_sharded_step":
+            h, w, levels, n = call["args"][:4]
+            frames = 4 * n
+            plan = make_plan(h, w, levels, 1, force_sharded=call["kwargs"].get("force_halo", False))
+            want = len(halo_exchanges(plan, FLAG_DEFAULTS["LVMT_TAIL"])) * frames
+            got = launches["halo_exchange_cols_rdma"]
+            if got != want:
+                raise AssertionError(f"port bench sharded {call['kwargs']}: K10 {got}, derived {want}")
+        else:
+            mode, h, w, levels = call["args"][:4]
+            n = call["kwargs"]["t_chunk"] if call["kind"] == "bench_time_parallel" else call["args"][4]
+            frames = 4 * n
+            want = bench_expected(dict(mode=mode, h=h, w=w, levels=levels, flags=call["flags"]),
+                                  n, *modules)
+            if launches != want:
+                raise AssertionError(f"port bench {call['kind']} {call['args']} under "
+                                     f"{call['flags']}: launches {launches} != {want}")
+        per_call.append(dict(kind=call["kind"], kwargs=call["kwargs"],
+                             args=[a for a in call["args"] if not isinstance(a, torch.device)],
+                             fast=call["flags"]["LVMT_TAIL"] == FAST_ENV["LVMT_TAIL"],
+                             launches_per_frame={k: v / frames for k, v in launches.items() if v}))
+    kinds = [c["kind"] for c in calls]
+    if kinds.count("bench_sharded_step") != 2 or len(head_calls) != 2:
+        raise AssertionError(f"port bench: calls {kinds}, headline {len(head_calls)}")
+    k5 = [c for c in calls if c["kind"] == "bench_mode_scan"
+          and c["args"][:3] == ("phase", 1080, 1920)]
+    if len(k5) != 1 or k5[0]["launches"]["riesz_build_level"] != 4 * steps:
+        raise AssertionError(f"port bench: K5 in the 1080p phase entry {k5}")
+
+    # the headline's warm checksum against a plain loop of the step
+    m = re.search(r"checksums=\((\d+), (\d+)\)", err)
+    ms = re.search(r"steady=([0-9.]+)ms/frame", err)
+    if m is None or ms is None:
+        raise AssertionError(f"port bench: no checksums or ms/frame in {err!r}")
+    h, w = 2160, 3840
+    gen = np.random.default_rng(0)
+    base = torch.from_numpy(gen.integers(0, 255, (3, h, w + 64), dtype=np.uint8)).to(dev)
+    state, dyn, total = riesz.init_state(h, w, 6, device=dev), sharded_dyn(), 0
+    for t in range(steps):
+        state, out = riesz.step(state, base[:, :, t % 64:t % 64 + w].contiguous(), dyn, levels=6)
+        total += int(out[:, ::64, ::64].to(torch.int64).sum().item())
+    del state, out, base
+    if int(m.group(1)) != total:
+        raise AssertionError(f"port bench: warm checksum {m.group(1)} != the plain loop's {total}")
+    log(phase="port_bench_check", card=torch.cuda.get_device_name(dev),
+        headline_ms_per_frame=float(ms.group(1)), slice_4k_jnp_steady_ms_per_frame=jnp_ms,
+        headline_fps=headline["value"], fast_mode_fps=headline["fast_mode_fps"],
+        warm_checksum=total, checksums=[int(m.group(1)), int(m.group(2))],
+        headline_seconds=headline_s, matrix_seconds=matrix_s,
+        gl=gl.get("skipped", "ran"), calls=per_call)
+    return calls
 
 
 def slice_card_vs_cpu(torch, dev, st, tl, name="jnp", h=1080, w=1920, t=4):
@@ -3238,8 +3403,9 @@ def main() -> int:
     plan4k = make_plan(2160, 3840, 6, 4)
     halo_err = halo_kernel_check(dev, hl, plan4k)
     halo_times, halo_frame = halo_kernel_time(dev, hl, plan4k)
-    launches, frames, jnp_out = slice_4k(torch, dev, st, tl, frames)
+    launches, frames, jnp_out, jnp_ms = slice_4k(torch, dev, st, tl, frames)
     runs = slice_4k_tails(torch, dev, st, tl, frames, jnp_out)
+    bench_calls = port_bench(torch, dev, st, tl, hl, jnp_ms)
     log(phase="ieee_f32", **assert_ieee_f32(torch))
     slice_4k_modes(torch, dev, st, tl, hl, frames)
     del frames, jnp_out
@@ -3338,6 +3504,8 @@ def main() -> int:
                         bound_ms=top["bound_ms"], bound_by=top["bound_by"], library_ms=None,
                         shape=top["shape"], shards=top["shards"], halo=top["halo"],
                         per_frame=halo_frame))
+    for k in kernels:  # the port bench's launches of each kernel, all its runs summed
+        k["bench_launches"] = sum(c["launches"].get(k["name"], 0) for c in bench_calls)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -27,14 +27,16 @@ Layering (lower layers never import higher ones):
                   C++ transport's ctypes adapter
     io/           video file decode and encode (OpenCV, imported when called)
     convert.py    carried state and dynamic parameters from the JAX package
-    cli.py        the ``info``, ``magnify``, ``live``, ``record`` and
-                  ``cameras`` commands
+    gui.py        the desktop window (tkinter) and theme.py its palette
+    cli.py        the ``info``, ``magnify``, ``live``, ``record``,
+                  ``cameras`` and ``bench`` commands
+    bench.py      the benchmarks (the reference's root ``bench.py``)
 
-Ported so far: all three modes through the chain, ClipProcessor and the
-CLI's offline commands (sequential, ``--time-parallel`` and
-``--distributed``), the lane-sharded phase step, the time mesh, the live
-engine and the record-and-export flow. The GL present path, the GUI, the
-``bench`` command and the rest of parallel/ are still to come (ROADMAP.md).
+Every module of the reference package has its counterpart here: all three
+modes through the chain, ClipProcessor and the CLI's offline commands
+(sequential, ``--time-parallel`` and ``--distributed``), the lane- and
+row-sharded steps, the time mesh, the live engine, the record-and-export
+flow, the GUI, the GL present path and the benchmarks.
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,7 @@
     python -m live_video_magnification_tpu_torch.cli live [--camera N | --video F] [params]
     python -m live_video_magnification_tpu_torch.cli record <out> [--camera N] [params]
     python -m live_video_magnification_tpu_torch.cli cameras
+    python -m live_video_magnification_tpu_torch.cli bench [bench flags]
 
 The counterpart of the reference package's ``cli.py``: ``info`` prints the
 container's frame count, size, rate and the largest pyramid depth;
@@ -18,7 +19,9 @@ its stats line (with ``--gl``, also a glfw window that presents the mailbox
 through ``engine/gl_present.py``'s ``GLPresenter`` in the ``--view`` layout;
 without a display or GL it continues stats-only); ``record`` records a camera (or a synthetic camera) losslessly
 into RAM and then exports it magnified through ``export/exporter.py::Exporter``;
-``cameras`` lists the capture devices.
+``cameras`` lists the capture devices; ``bench`` runs the port's benchmarks
+(``bench.py``; its flags, ``--device`` included, follow the command as they
+are, an optional leading ``--`` dropped).
 
 Parameters are taken in UI units (Hz bands, percent sliders) and mapped
 through the single UI <-> algorithm mapping (``models/params.py``), as the
@@ -32,9 +35,6 @@ need it only for the exported file.
 every process (``parallel/batch_export.py``); start one process per host or
 card with COORDINATOR_ADDRESS, NUM_PROCESSES and PROCESS_ID set
 (``parallel/distributed.py``), or one process alone for its own devices.
-
-Not ported yet (ROADMAP.md): the ``bench`` command (the port's bench is the
-"port bench" item of "What comes next").
 """
 
 from __future__ import annotations
@@ -516,6 +516,17 @@ def cmd_record(args) -> int:
     return 0
 
 
+def cmd_bench(rest) -> int:
+    """``bench.main`` on ``rest``; its exit status (``--help`` and argument
+    errors included) is returned, not raised."""
+    from live_video_magnification_tpu_torch import bench
+
+    try:
+        return bench.main(list(rest))
+    except SystemExit as e:
+        return e.code if isinstance(e.code, int) else (0 if e.code is None else 1)
+
+
 def cmd_cameras(_args) -> int:
     from live_video_magnification_tpu_torch.engine.source import enumerate_cameras
 
@@ -528,6 +539,13 @@ def cmd_cameras(_args) -> int:
 
 
 def main(argv=None) -> int:
+    argv = list(sys.argv[1:]) if argv is None else list(argv)
+    # `bench` hands its whole tail to bench.py's own parser, before this
+    # one: a sub-parser cannot pass on flags it does not know
+    if argv[:1] == ["bench"]:
+        rest = argv[1:]
+        return cmd_bench(rest[1:] if rest[:1] == ["--"] else rest)
+
     ap = argparse.ArgumentParser(prog="python -m live_video_magnification_tpu_torch.cli",
                                  description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -591,6 +609,8 @@ def main(argv=None) -> int:
 
     p = sub.add_parser("cameras", help="enumerate capture devices")
     p.set_defaults(fn=cmd_cameras)
+
+    sub.add_parser("bench", help="the port's benchmarks (bench.py; `bench --help`)")
 
     args = ap.parse_args(argv)
     return args.fn(args)

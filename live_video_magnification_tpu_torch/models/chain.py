@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -274,16 +273,9 @@ class MagnificationChain:
         if mode is not MagnificationMode.NONE and max_levels < 1:
             mode = MagnificationMode.NONE  # too small to magnify -> identity
         levels = min(max(cfg.magnification.levels, 1), max(max_levels, 1))
-        flags = dict(tail=os.environ.get("LVMT_TAIL", "jnp"),
-                     build=os.environ.get("LVMT_BUILD", "auto"),
-                     mxu_dtype=os.environ.get("LVMT_MXU_DTYPE", "f32"),
-                     pyr_io=os.environ.get("LVMT_PYR_IO", "f32"),
-                     tail_io=os.environ.get("LVMT_TAIL_IO", "f32"))
-        riesz_mode.resolve_flags(**flags)
         return _StaticKey(
             mode, levels, mag_channels, channels, h, w, bool(cfg.grayscale), geometry,
-            float(cfg.magnification.framerate),
-            os.environ.get("LVMT_PHASE_FUSED", "0") == "1", **flags,
+            float(cfg.magnification.framerate), **riesz_mode.env_flags(),
         )
 
     def process(self, frame_u8_hwc, cfg: ProcessorConfig):

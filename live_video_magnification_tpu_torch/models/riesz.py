@@ -23,6 +23,7 @@ over the time axis, with the same carried state.
 
 from __future__ import annotations
 
+import os
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -142,6 +143,21 @@ def resolve_flags(tail: str = "jnp", build: str = "auto", mxu_dtype: str = "f32"
     resolve_mxu_dtype(mxu_dtype)
     resolve_dtype(pyr_io)
     resolve_dtype(tail_io)
+
+
+def env_flags() -> dict:
+    """The keywords of ``step`` as the environment sets them: LVMT_TAIL,
+    LVMT_PHASE_FUSED, LVMT_BUILD, LVMT_MXU_DTYPE, LVMT_PYR_IO and
+    LVMT_TAIL_IO, which the reference package reads at trace time. ``step``
+    never reads the environment; its callers read it once, here. Raises on
+    any value the port does not implement."""
+    flags = dict(tail=os.environ.get("LVMT_TAIL", "jnp"),
+                 build=os.environ.get("LVMT_BUILD", "auto"),
+                 mxu_dtype=os.environ.get("LVMT_MXU_DTYPE", "f32"),
+                 pyr_io=os.environ.get("LVMT_PYR_IO", "f32"),
+                 tail_io=os.environ.get("LVMT_TAIL_IO", "f32"))
+    resolve_flags(**flags)
+    return dict(flags, phase_fused=os.environ.get("LVMT_PHASE_FUSED", "0") == "1")
 
 
 def _unflat(regs) -> RegPair:

@@ -603,7 +603,8 @@ def build_sharded_riesz_step(
     plan = make_plan(h, w, levels, n, force_sharded=force_sharded)
     if n > 1 and not plan.sharded[0]:
         raise ValueError(
-            f"W={w} cannot be lane-sharded {n}-way at level 0 (the GSPMD path is not ported)")
+            f"W={w} cannot be lane-sharded {n}-way at level 0; use "
+            "parallel/sharding.py::build_sharded_step (the row-sharded step)")
     ops = _Ops(tail=tail, band_parallel=band_parallel)
     row_objs = [_Row(r, plan) for r in rows]
     first_device = mesh.devices.flat[0]

@@ -138,10 +138,9 @@ def test_magnify_defaults_to_laplace_and_fails_without_a_card(clip_path, tmp_pat
 
 
 @pytest.mark.parametrize("flag", ["--distributed"])
-def test_unported_paths_fail_with_the_roadmap_message(flag, clip_path, tmp_path, capsys,
-                                                      monkeypatch):
-    """--distributed, the last path this test held to the "not ported"
-    message, is ported: with --device cpu it writes every frame (one CPU
+def test_magnify_distributed_writes_every_frame_and_needs_a_card(flag, clip_path, tmp_path,
+                                                                 capsys, monkeypatch):
+    """--distributed: with --device cpu it writes every frame (one CPU
     shard: the time-parallel path's frames, through the parts' concat, so
     within the codec bar of the reference suite's distributed export test);
     without a card it fails with the no-CUDA message instead of falling
@@ -336,11 +335,10 @@ def test_cameras_lists_capture_devices(capsys):
 
 
 @pytest.mark.parametrize("flags", [["--gl"], ["--view", "side-by-side"]])
-def test_live_gl_is_refused_with_the_roadmap_item(flags, capsys):
+def test_live_gl_and_view_run_stats_only_without_a_display(flags, capsys):
     """``live --gl`` / ``--view`` run as the reference's: without a display
     ``--gl`` prints its "--gl unavailable" line and runs stats-only on the
-    chain's own device; ``--view`` is accepted. (The name is from the slice
-    that refused both.)"""
+    chain's own device; ``--view`` is accepted."""
     assert tcli.main(["live", "--device", "cpu", "--duration", "1", "--size", "32", "48"]
                      + flags) == 0
     err = capsys.readouterr().err
@@ -348,3 +346,72 @@ def test_live_gl_is_refused_with_the_roadmap_item(flags, capsys):
     if flags == ["--gl"] and not os.environ.get("DISPLAY"):
         assert "--gl unavailable (" in err and "); continuing stats-only" in err
     assert not [t for t in threading.enumerate() if t.name == "ProcessingChain"]
+
+
+def test_live_gl_success_path_presents_headless(monkeypatch):
+    """``live --gl``'s success branch, the main-thread paint / swap / stats
+    loop of ``cmd_live``, headless: the EGL surfaceless context stands in
+    for the glfw window. The engine's frames reach the GL textures (uploads
+    advance) and closing the window ends the run. Skips, and does not fail,
+    if its deadline passes before two uploads (a loaded host)."""
+    pytest.importorskip("OpenGL")
+    import time
+
+    from live_video_magnification_tpu_torch.engine import gl_present
+
+    if not gl_present.gl_available():
+        pytest.skip("no EGL surfaceless GL context in this image")
+
+    caps = {}
+
+    class _Presenter(gl_present.GLPresenter):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            caps["presenter"] = self
+
+    class _Ctx(gl_present.HeadlessGLContext):
+        """HeadlessGLContext + the window-only surface cmd_live touches
+        (should_close); swap sleeps like vsync."""
+
+        def __init__(self, w, h, title=""):
+            super().__init__(w, h)
+            self.swaps = 0
+            self.deadline = time.monotonic() + 90.0
+            caps["ctx"] = self
+
+        def should_close(self):
+            p = caps.get("presenter")
+            done = p is not None and p.uploads >= 2 and self.swaps >= 3
+            caps["expired"] = not done and time.monotonic() > self.deadline
+            return done or caps["expired"]
+
+        def swap(self):
+            self.swaps += 1
+            super().swap()
+            time.sleep(1.0 / 120.0)
+
+    monkeypatch.setattr(gl_present, "GLPresenter", _Presenter)
+    monkeypatch.setattr(gl_present, "WindowGLContext", _Ctx)
+    assert tcli.main(["live", "--size", "48", "64", "--duration", "300", "--mode", "laplace",
+                      "--levels", "2", "--gl", "--device", "cpu"]) == 0
+    if caps.get("expired"):
+        pytest.skip("the 90 s deadline passed before two uploads (loaded host)")
+    assert caps["presenter"].uploads >= 2  # real frames hit the textures
+    assert caps["presenter"].reallocs >= 1  # the first geometry allocation ran
+    assert caps["ctx"].swaps >= 3
+    assert not [t for t in threading.enumerate() if t.name == "ProcessingChain"]
+
+
+def test_live_playback_fps_flag_wires_to_controller(clip_path, monkeypatch):
+    """``live --video ... --playback-fps`` drives
+    ``PlaybackController.set_playback_fps`` for a file source
+    (StatusStrip.cpp:122-158)."""
+    from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+
+    calls = []
+    orig = PlaybackController.set_playback_fps
+    monkeypatch.setattr(PlaybackController, "set_playback_fps",
+                        lambda self, fps: (calls.append(fps), orig(self, fps))[1])
+    assert tcli.main(["live", "--video", clip_path, "--duration", "0.5", "--playback-fps",
+                      "12.5", "--mode", "laplace", "--device", "cpu"]) == 0
+    assert calls == [12.5]

@@ -1085,3 +1085,19 @@ def test_gui_record_flow_on_the_card_equals_a_fresh_chain(cuda):
     assert row["export_amplification"] == row["live_amplification"] + 30
     assert row["stencil_launches_per_frame"] == {
         k: float(v) for k, v in stencil_launches(270, 480, row["levels"]).items() if v}
+
+
+@pytest.mark.parametrize("flags", [[], ["--mode", "laplace"], ["--mode", "color"],
+                                   ["--time-parallel"], ["--sharded"]])
+def test_bench_runs_on_the_card(cuda, flags, capsys):
+    """The port's bench at 1080p, levels 6, 4 steps: one JSON line with a
+    rate, the card's name and power limit on stderr."""
+    import json
+
+    from live_video_magnification_tpu_torch import bench
+
+    assert bench.main(["--res", "1080x1920", "--levels", "6", "--steps", "4", *flags]) == 0
+    out, err = capsys.readouterr()
+    (line,) = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    assert "error" not in line and line["value"] > 0 and line["unit"] == "fps"
+    assert torch.cuda.get_device_name(cuda) in err and " W)" in err and "checksums=(" in err

@@ -233,7 +233,7 @@ def test_unknown_halo_impl_and_tail_raise(monkeypatch):
     assert trs._Ops().tail == "mxu"  # LVMT_TAIL read at build time; level -> mxu
     monkeypatch.setenv("LVMT_TAIL", "pallas")
     assert trs._Ops().tail == "pallas"
-    with pytest.raises(ValueError, match="lane-sharded"):
+    with pytest.raises(ValueError, match="lane-sharded.*sharding.py::build_sharded_step"):
         trs.build_sharded_riesz_step(_cpu_mesh((1, 8)), 1, 32, 200, 2)
 
 
