@@ -18,6 +18,11 @@ The copy to the card reads the pooled buffer synchronously (``.to(device)``
 of pageable memory), and both panes come back by an explicit
 ``.cpu().numpy()``, so the buffer returns to the pool only after the device
 is done with it.
+
+Each frame is traced as ``consumer.frame`` (from the pop's return to after
+the publish) holding ``consumer.h2d``, ``consumer.step``,
+``consumer.readback`` and ``consumer.publish``, all with the frame's ``seq``
+(``engine/profiling.py``; inert unless it is enabled).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from live_video_magnification_tpu_torch.engine.config import AtomicConfig
 from live_video_magnification_tpu_torch.engine.frame import Frame, PixelFormat, now
 from live_video_magnification_tpu_torch.engine.instrumentation import Instrumentation
 from live_video_magnification_tpu_torch.engine.mailbox import DisplayFrame, LatestFrameMailbox
+from live_video_magnification_tpu_torch.engine.profiling import span
 from live_video_magnification_tpu_torch.engine.queue import BoundedQueue
 from live_video_magnification_tpu_torch.models.chain import MagnificationChain
 from live_video_magnification_tpu_torch.models.params import ProcessorConfig
@@ -97,6 +103,7 @@ class ProcessingChain:
         self._config = config
         self._instr = instr
         self._chain = MagnificationChain(device=device)
+        self._device = self._chain.device
         self._thread: Optional[threading.Thread] = None
         self._stopping = threading.Event()
 
@@ -120,19 +127,30 @@ class ProcessingChain:
             frame = self._queue.pop()
             if frame is None:
                 return  # stopped
-            cfg = self._config.read() or ProcessorConfig()
-            try:
-                processed_dev, original_dev = self._chain.process(frame.data, cfg)
+            with span("consumer.frame", frame.seq):
+                self._consume(frame)
+
+    def _consume(self, frame: Frame) -> None:
+        cfg = self._config.read() or ProcessorConfig()
+        device, seq = self._device, frame.seq
+        try:
+            with span("consumer.h2d", seq, copy=device, nbytes=frame.data.nbytes):
+                data = torch.as_tensor(frame.data).to(device)
+            with span("consumer.step", seq):
+                processed_dev, original_dev = self._chain.process(data, cfg)
+            with span("consumer.readback", seq, copy=device,
+                      nbytes=processed_dev.nbytes + original_dev.nbytes):
                 processed = hwc_result(processed_dev)
                 original = hwc_result(original_dev)
+            with span("consumer.publish", seq):
                 pf = Frame(
-                    seq=frame.seq, pts_us=frame.pts_us, capture_ts=frame.capture_ts,
+                    seq=seq, pts_us=frame.pts_us, capture_ts=frame.capture_ts,
                     width=processed.shape[1], height=processed.shape[0],
                     format=PixelFormat.GRAY8 if processed.ndim == 2 else PixelFormat.BGR8,
                     data=processed,
                 )
                 of = Frame(
-                    seq=frame.seq, pts_us=frame.pts_us, capture_ts=frame.capture_ts,
+                    seq=seq, pts_us=frame.pts_us, capture_ts=frame.capture_ts,
                     width=original.shape[1], height=original.shape[0],
                     format=PixelFormat.GRAY8 if original.ndim == 2 else PixelFormat.BGR8,
                     data=original,
@@ -140,15 +158,15 @@ class ProcessingChain:
                 self._mailbox.publish(DisplayFrame(pf, of))
                 self._instr.on_processed()
                 self._instr.record_latency(now() - frame.capture_ts)
-            except Exception:
-                # Degrade, don't crash: count, reset temporal state, passthrough.
-                self._instr.on_proc_error()
-                self._chain.reset()
-                copy = Frame(
-                    seq=frame.seq, pts_us=frame.pts_us, capture_ts=frame.capture_ts,
-                    width=frame.width, height=frame.height, format=frame.format,
-                    data=np.array(frame.data, copy=True),
-                )
-                self._mailbox.publish(DisplayFrame(copy, copy))
-            finally:
-                frame.release()
+        except Exception:
+            # Degrade, don't crash: count, reset temporal state, passthrough.
+            self._instr.on_proc_error()
+            self._chain.reset()
+            copy = Frame(
+                seq=seq, pts_us=frame.pts_us, capture_ts=frame.capture_ts,
+                width=frame.width, height=frame.height, format=frame.format,
+                data=np.array(frame.data, copy=True),
+            )
+            self._mailbox.publish(DisplayFrame(copy, copy))
+        finally:
+            frame.release()

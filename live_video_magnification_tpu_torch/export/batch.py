@@ -9,6 +9,11 @@ so checkpoints and chunk boundaries are interchangeable between the two
 paths. The state plus the frame cursor is saved to ``.npz`` with the
 reference's leaf order and format version (the host-int ``count`` as an
 int32 scalar), so a long export can resume.
+
+A chunk is traced as ``export.chunk`` (id: the cursor) holding
+``export.h2d``, an ``export.step`` for each frame (id: its index in the clip;
+one around the whole chunk on the time-parallel path) and
+``export.readback`` (``engine/profiling.py``; inert unless it is enabled).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from live_video_magnification_tpu_torch.convert import state_from_numpy, state_to_numpy
+from live_video_magnification_tpu_torch.engine.profiling import span
 from live_video_magnification_tpu_torch.models.chain import (
     MagnificationChain,
     _build_pre_stages,
@@ -65,17 +71,26 @@ class ClipProcessor:
     def process_chunk(self, frames_u8) -> Tuple[np.ndarray, np.ndarray]:
         """frames_u8: [T, C, H, W] u8 (numpy or a tensor on any device).
         Returns (processed, original) numpy stacks."""
-        frames = torch.as_tensor(frames_u8).to(self.device)
-        if self.time_parallel:
-            self.state, (processed, original) = self._chunk_raw(self.state, frames)
-        else:
-            steps = []
-            for frame in frames:
-                self.state, out, orig = self._step.raw_fn(self.state, frame, self._dyn)
-                steps.append((out, orig))
-            processed, original = (torch.stack(x) for x in zip(*steps))
-        self.cursor += frames.shape[0]
-        return processed.cpu().numpy(), original.cpu().numpy()
+        cursor, device = self.cursor, self.device
+        with span("export.chunk", cursor):
+            frames = torch.as_tensor(frames_u8)
+            with span("export.h2d", cursor, copy=device, nbytes=frames.nbytes):
+                frames = frames.to(device)
+            if self.time_parallel:
+                with span("export.step", cursor):
+                    self.state, (processed, original) = self._chunk_raw(self.state, frames)
+            else:
+                steps = []
+                for i, frame in enumerate(frames):
+                    with span("export.step", cursor + i):
+                        self.state, out, orig = self._step.raw_fn(self.state, frame, self._dyn)
+                    steps.append((out, orig))
+                processed, original = (torch.stack(x) for x in zip(*steps))
+            with span("export.readback", cursor, copy=device,
+                      nbytes=processed.nbytes + original.nbytes):
+                result = processed.cpu().numpy(), original.cpu().numpy()
+            self.cursor += frames.shape[0]
+        return result
 
     def _chunk_raw(self, state, frames, shards=None):
         """(state, (processed, original)) of a chunk by the time-parallel
