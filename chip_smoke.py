@@ -1460,9 +1460,10 @@ def run_clip(torch, dev, proc, chunks, modules):
 
 
 def host_copies_ms(torch, dev, tchw):
-    """ms a frame of process_chunk's host copies of a [T, 3, H, W] u8 chunk:
-    the pageable chunk to the card, and two u8 stacks of its size back to
-    the host (processed and original), by the host clock."""
+    """ms a frame of pageable host copies of a [T, 3, H, W] u8 chunk: the
+    chunk to the card (process_chunk's H2D), and two u8 stacks of its size
+    back to pageable host memory (process_chunk reads its panes back into
+    pinned memory on a copy stream instead), by the host clock."""
     t = tchw.shape[0]
     host = torch.from_numpy(tchw)
     torch.cuda.synchronize()
@@ -1525,8 +1526,8 @@ def slice_4k_time_parallel(torch, dev, st, tl, hl, frames):
     h2d, d2h = host_copies_ms(torch, dev, tchw)
     scans = tp_scan_time(torch, dev, t, h, w)
     log(phase="tp_host_copies", card=card, shape=[t, 3, h, w], h2d_ms_per_frame=h2d,
-        d2h_two_stacks_ms_per_frame=d2h, what="process_chunk's copies alone: the pageable "
-        "u8 chunk to the card, and two u8 stacks of its size back",
+        d2h_two_stacks_ms_per_frame=d2h, what="pageable copies alone: the u8 chunk to the "
+        "card (process_chunk's H2D), and two u8 stacks of its size back",
         scan_device_ms_per_frame={"phase": scans["phase"], "motion": scans["laplace"]})
     for n_pass, order in enumerate((TP_MODES, TP_MODES[::-1]), start=1):
         for mode in order:

@@ -10,10 +10,20 @@ paths. The state plus the frame cursor is saved to ``.npz`` with the
 reference's leaf order and format version (the host-int ``count`` as an
 int32 scalar), so a long export can resume.
 
+On a card the panes come back on a copy stream of the processor's own, into
+pinned host tensors fresh each chunk (PyTorch's caching host allocator
+reuses freed ones): frame i's two copies are enqueued right after its step,
+so they run while the host issues frame i+1, and the chunk's end waits only
+for the last of them. The time-parallel path copies its two stacks once,
+after the chunk. On the CPU the panes are stacked and returned as they are.
+
 A chunk is traced as ``export.chunk`` (id: the cursor) holding
 ``export.h2d``, an ``export.step`` for each frame (id: its index in the clip;
-one around the whole chunk on the time-parallel path) and
-``export.readback`` (``engine/profiling.py``; inert unless it is enabled).
+one around the whole chunk on the time-parallel path), on a card an
+``export.d2h`` on the copy stream for each frame's copies (one for the
+chunk's time-parallel), and ``export.readback``: on the CPU both stacks'
+``.numpy()``, on a card the wait for the copy stream (``engine/profiling.py``;
+inert unless it is enabled).
 """
 
 from __future__ import annotations
@@ -45,6 +55,12 @@ STATE_FORMAT_VERSION = 2
 _FLAG_FIELDS = ("phase_fused", "tail", "build", "mxu_dtype", "pyr_io", "tail_io")
 
 
+def _pinned(shape, like: torch.Tensor) -> torch.Tensor:
+    """A pinned host tensor of ``like``'s dtype, from PyTorch's caching host
+    allocator."""
+    return torch.empty(shape, dtype=like.dtype, pin_memory=True)
+
+
 class ClipProcessor:
     """Processor for [T, C, H, W] u8 chunks with carried state.
 
@@ -67,11 +83,15 @@ class ClipProcessor:
         self.state = self._step.init_state()
         self.cursor = 0
         self.time_parallel = time_parallel
+        # the readbacks' stream (module docstring); none on the CPU
+        self._copies = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
+                        else None)
 
     def process_chunk(self, frames_u8) -> Tuple[np.ndarray, np.ndarray]:
         """frames_u8: [T, C, H, W] u8 (numpy or a tensor on any device).
-        Returns (processed, original) numpy stacks."""
-        cursor, device = self.cursor, self.device
+        Returns (processed, original) numpy stacks; on a card, views of
+        pinned host tensors new to this call, which they keep alive."""
+        cursor, device, copies = self.cursor, self.device, self._copies
         with span("export.chunk", cursor):
             frames = torch.as_tensor(frames_u8)
             with span("export.h2d", cursor, copy=device, nbytes=frames.nbytes):
@@ -79,18 +99,44 @@ class ClipProcessor:
             if self.time_parallel:
                 with span("export.step", cursor):
                     self.state, (processed, original) = self._chunk_raw(self.state, frames)
+                if copies is not None:
+                    hosts = [_pinned(x.shape, x) for x in (processed, original)]
+                    self._d2h(cursor, (processed, original), hosts)
             else:
-                steps = []
+                steps = []  # every pane stays referenced until its copy is done
                 for i, frame in enumerate(frames):
                     with span("export.step", cursor + i):
                         self.state, out, orig = self._step.raw_fn(self.state, frame, self._dyn)
                     steps.append((out, orig))
-                processed, original = (torch.stack(x) for x in zip(*steps))
-            with span("export.readback", cursor, copy=device,
-                      nbytes=processed.nbytes + original.nbytes):
-                result = processed.cpu().numpy(), original.cpu().numpy()
+                    if copies is not None:
+                        if i == 0:
+                            hosts = [_pinned((len(frames), *x.shape), x) for x in (out, orig)]
+                        self._d2h(cursor + i, (out, orig), [x[i] for x in hosts])
+                if copies is None:
+                    processed, original = (torch.stack(x) for x in zip(*steps))
+            if copies is None:
+                with span("export.readback", cursor, copy=device,
+                          nbytes=processed.nbytes + original.nbytes):
+                    result = processed.cpu().numpy(), original.cpu().numpy()
+            else:
+                with torch.cuda.stream(copies), span("export.readback", cursor, copy=device,
+                                                     nbytes=sum(x.nbytes for x in hosts)):
+                    copies.synchronize()
+                    result = hosts[0].numpy(), hosts[1].numpy()
             self.cursor += frames.shape[0]
         return result
+
+    def _d2h(self, index, panes, hosts) -> None:
+        """Enqueue the copies of ``panes`` (device) into ``hosts`` (pinned) on
+        the copy stream, behind the work issued so far on the current one;
+        traced as ``export.d2h`` (id: ``index``), its CUDA events on the copy
+        stream."""
+        copies = self._copies
+        copies.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(copies), span("export.d2h", index, copy=self.device,
+                                             nbytes=sum(x.nbytes for x in panes)):
+            for host, pane in zip(hosts, panes):
+                host.copy_(pane, non_blocking=True)
 
     def _chunk_raw(self, state, frames, shards=None):
         """(state, (processed, original)) of a chunk by the time-parallel

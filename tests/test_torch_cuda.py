@@ -3,7 +3,8 @@
 (under each tail configuration, each build and the fast flags) and chain on
 the card against the CPU, the motion and colour modes (step, chain and
 ClipProcessor) on the card against the CPU, the time-parallel clip path
-of all three modes against the sequential one and the CPU, and the live
+of all three modes against the sequential one and the CPU, ClipProcessor's
+pinned readback on its copy stream against a plain ``.cpu()``, and the live
 engine (``PlaybackController``'s stencil launches) and the ``Exporter`` on the
 card.
 
@@ -738,6 +739,82 @@ def test_time_parallel_on_the_card_matches_sequential_and_the_cpu(cuda, mode, le
             np.testing.assert_array_equal(a[0], b[0])
         else:
             assert lsb <= 1, f"against {other}: max {lsb} LSB"
+
+
+# ---------------------------------------------------------------- the clip export's readback
+
+@pytest.mark.parametrize("mode,levels", [("phase", 4), ("laplace", 4)])
+@pytest.mark.parametrize("time_parallel", [False, True], ids=["sequential", "time_parallel"])
+def test_pinned_readback_equals_a_plain_readback(cuda, mode, levels, time_parallel, tmp_path):
+    """ClipProcessor on the card reads its panes back on its copy stream into
+    pinned host tensors: bit for bit what ``.cpu()`` of the same outputs
+    gives (a processor without the copy stream) over a full chunk, a chunk
+    resumed from a checkpoint and a partial one; every array pinned and new,
+    the first chunk's unchanged after the later ones."""
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w = 136, 240
+    cfg = _mode_cfg(mode, levels, 30.0)
+    tchw = np.ascontiguousarray(moving_clip(11, h, w, seed=11).transpose(0, 3, 1, 2))
+    plain = ClipProcessor(cfg, h, w, 3, time_parallel=time_parallel, device=cuda)
+    plain._copies = None  # the stacks' .cpu(), as on the CPU
+    pinned = ClipProcessor(cfg, h, w, 3, time_parallel=time_parallel, device=cuda)
+    assert pinned._copies is not None
+    got = []
+    for a, b in [(0, 4), (4, 8), (8, 11)]:
+        if a == 4:
+            pinned.save_checkpoint(str(tmp_path / "ck"))
+            pinned = ClipProcessor(cfg, h, w, 3, time_parallel=time_parallel, device=cuda)
+            assert pinned.load_checkpoint(str(tmp_path / "ck")) == 4
+        got.append(pinned.process_chunk(tchw[a:b]))
+        if a == 0:
+            kept = [x.copy() for x in got[0]]
+        want = plain.process_chunk(tchw[a:b])
+        for g, r in zip(got[-1], want):
+            assert g.shape == r.shape and g.dtype == r.dtype
+            np.testing.assert_array_equal(g, r)
+            assert torch.from_numpy(g).is_pinned()
+    for g, k in zip(got[0], kept):
+        np.testing.assert_array_equal(g, k)
+    arrays = [x for pair in got for x in pair]
+    assert not any(np.shares_memory(x, y) for i, x in enumerate(arrays) for y in arrays[i + 1:])
+
+
+@pytest.mark.parametrize("time_parallel", [False, True], ids=["sequential", "time_parallel"])
+def test_the_pinned_readback_spans_each_frames_copies(cuda, time_parallel):
+    """With the recorder on: one ``export.d2h`` a frame (one a chunk
+    time-parallel), inside ``export.chunk``, with both panes' bytes and its
+    CUDA events read, and one ``export.readback`` a chunk."""
+    import time
+
+    from live_video_magnification_tpu_torch.engine import profiling
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w = 72, 128
+    tchw = np.ascontiguousarray(moving_clip(5, h, w, seed=12).transpose(0, 3, 1, 2))
+    proc = ClipProcessor(_mode_cfg("laplace", 3, 30.0), h, w, 3, time_parallel=time_parallel,
+                         device=cuda)
+    t0 = time.monotonic()
+    profiling.enable()
+    try:
+        proc.process_chunk(tchw[:3])
+        proc.process_chunk(tchw[3:])
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize(cuda)
+    held = profiling.spans(t0, time.monotonic())
+    d2h = [s for s in held if s.name == "export.d2h"]
+    frame = 2 * 3 * h * w
+    if time_parallel:
+        assert [(s.id, s.nbytes) for s in d2h] == [(0, 3 * frame), (3, 2 * frame)]
+    else:
+        assert [(s.id, s.nbytes) for s in d2h] == [(i, frame) for i in range(5)]
+    assert all(s.parent.name == "export.chunk" and s.device_ms > 0 for s in d2h)
+    readbacks = [s for s in held if s.name == "export.readback"]
+    assert [(s.id, s.nbytes) for s in readbacks] == [(0, 3 * frame), (3, 2 * frame)]
+    assert all(s.device_ms is not None for s in readbacks)
 
 
 # ---------------------------------------------------------------- K10 and the sharded step

@@ -166,6 +166,25 @@ def test_the_export_spans_each_chunk(recorder, time_parallel):
         assert kids[0].nbytes == 2 * 3 * H * W and kids[-1].nbytes == 2 * 2 * 3 * H * W
 
 
+@pytest.mark.parametrize("time_parallel", [False, True])
+def test_the_cpu_export_reads_back_without_a_copy_stream(recorder, time_parallel):
+    """On the CPU the processor has no copy stream: no ``export.d2h`` span,
+    one ``export.readback`` a chunk holding both stacks' bytes, and the
+    chunk's ``export.h2d`` with its frames' bytes."""
+    proc = ClipProcessor(_cfg(), H, W, 3, time_parallel=time_parallel, device="cpu")
+    assert proc._copies is None
+    chunk = np.ascontiguousarray(_clip(5).transpose(0, 3, 1, 2))
+    proc.process_chunk(chunk[:3])
+    proc.process_chunk(chunk[3:])
+    held = recorder()
+    assert not [s for s in held if s.name == "export.d2h"]
+    readbacks = [s for s in held if s.name == "export.readback"]
+    assert [s.id for s in readbacks] == [0, 3]
+    assert [s.nbytes for s in readbacks] == [2 * 3 * 3 * H * W, 2 * 2 * 3 * H * W]
+    assert [s.nbytes for s in held if s.name == "export.h2d"] == [3 * 3 * H * W, 2 * 3 * H * W]
+    assert all(s.device_ms is None for s in readbacks)
+
+
 def test_spans_land_beside_their_record_function_twins(recorder):
     proc = ClipProcessor(_cfg(), H, W, 3, device="cpu")
     chunk = np.ascontiguousarray(_clip(3).transpose(0, 3, 1, 2))

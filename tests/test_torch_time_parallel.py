@@ -484,6 +484,22 @@ def test_export_frames_time_parallel_resumes_from_a_checkpoint(tmp_path):
     assert got.shape == seq.shape and _lsb(got, seq) <= 1
 
 
+@pytest.mark.parametrize("mode", ["laplace", "phase"])
+@pytest.mark.parametrize("time_parallel", [False, True], ids=["sequential", "time_parallel"])
+def test_a_chunks_arrays_are_unchanged_by_the_next_chunk(mode, time_parallel):
+    """The arrays a chunk returns are its own: processing the next chunk
+    leaves them as they were and shares no memory with them."""
+    _, tcfg = _cfg_pair(mode)
+    arr = _clip(8, 48, 64, 40)
+    proc = ClipProcessor(tcfg, 48, 64, 3, time_parallel=time_parallel, device="cpu")
+    first = proc.process_chunk(arr[:4])
+    kept = [x.copy() for x in first]
+    second = proc.process_chunk(arr[4:])
+    for a, b, c in zip(first, kept, second):
+        np.testing.assert_array_equal(a, b)
+        assert not np.shares_memory(a, c)
+
+
 @pytest.mark.parametrize("name,over", [("none", {}), ("phase_on_gray", dict(gray=True))])
 def test_identity_path_returns_the_magnification_input(name, over):
     mode = "none" if name == "none" else "phase"
