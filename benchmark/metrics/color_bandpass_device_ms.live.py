@@ -1,0 +1,11 @@
+"""color_bandpass_device_ms.live: Median device ms a frame of the colour step's ``color.bandpass`` span
+(models/color.py::step: the window push, the bandpass operator applied, the min-max normalization and the amplification), by the span's CUDA events, over the window's frames outside the
+profiled slice. None where the program has no such span."""
+
+from benchmark.harness import spans
+
+spans.install()
+
+
+def read(ctx):
+    return spans.copy_device_ms(ctx, ("color.bandpass",))

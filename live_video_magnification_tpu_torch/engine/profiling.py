@@ -1,21 +1,26 @@
 """The port's span recorder: named regions at the boundaries of the live
-consumer and the clip export, kept in memory.
+consumer and the clip export, and inside the colour step, kept in memory.
 
 ``span(name, id)`` is a context manager. Off (the default) it checks one
 module-level flag and returns a shared null context: nothing is recorded,
 allocated or entered. Between ``enable()`` and ``disable()`` it records the
 region's name, start and end in int ns on ``engine/frame.py::now()``'s clock
 (``time.monotonic_ns``), the thread, the parent (the innermost span open in
-that thread), the frame's identifier, and enters
-``torch.profiler.record_function(name)``, so the same region shows in a
-profiler's trace. A span that holds a host<->device copy (``copy=`` the
+that thread), the frame's identifier (a span opened without one takes its
+parent's, so the spans inside a frame's step carry the frame's ``seq``), and
+enters ``torch.profiler.record_function(name)``, so the same region shows in
+a profiler's trace. A span that holds a host<->device copy (``copy=`` the
 device) carries the bytes it moves and, on a CUDA device, a pair of
 ``torch.cuda.Event`` around it. Their elapsed time is the stream's time over
 the whole region: with pageable host memory that holds CUDA's staging
 through its pinned buffer as well as the transfer, and any layout kernel the
-region issues. It is read only once the end event has completed, which the
-program's own synchronisations bring about (the readbacks). No span adds a
-synchronisation or a copy.
+region issues. A span over device work that is no copy (``device=`` the
+device) gets the same pair on a CUDA device and enters no
+``record_function``: the profiler would give such a range a device-side
+shadow spanning its first kernel to its last, idle gaps included, which a
+trace's reduction would read as device work. The events are read only once
+the end event has completed, which the program's own synchronisations bring
+about (the readbacks). No span adds a synchronisation or a copy.
 
 ``torch.profiler`` stamps its events on the wall clock (CLOCK_REALTIME);
 ``enable()`` takes an anchor between the two clocks and ``to_trace_ns`` maps a
@@ -45,28 +50,29 @@ _written = itertools.count()       # next() is atomic under the interpreter lock
 _local = threading.local()         # each thread's stack of open spans
 _offset_ns = 0                     # wall clock minus monotonic clock, from the anchor
 _events: List[torch.cuda.Event] = []   # free events
-_pending: collections.deque = collections.deque()  # copy spans whose events are unread
+_pending: collections.deque = collections.deque()  # spans whose events are unread
 _pending_lock = threading.Lock()
 
 
 class Span:
     """One region: ``start_ns`` / ``end_ns`` on the monotonic clock (ns),
     ``thread`` (``threading.get_ident()``), ``parent`` (the enclosing Span or
-    None), ``id`` (the frame's ``seq`` or a clip cursor), ``nbytes`` and
-    ``device_ms`` (a copy's bytes and the stream time from its start event to
-    its end event, None until read or off a CUDA device)."""
+    None), ``id`` (the frame's ``seq`` or a clip cursor), ``nbytes`` (a
+    copy's bytes) and ``device_ms`` (the stream time from the start event to
+    the end event of a copy or device region, None until read or off a CUDA
+    device). ``twin``: whether the span enters ``record_function``."""
 
     __slots__ = ("name", "id", "start_ns", "end_ns", "thread", "parent", "nbytes",
-                 "device_ms", "_device", "_pair", "_rf")
+                 "device_ms", "_device", "_pair", "_rf", "_twin")
 
     def __init__(self, name: str, id=None, start_ns: int = 0, end_ns: int = 0, thread: int = 0,
                  parent: Optional["Span"] = None, nbytes: int = 0,
-                 device_ms: Optional[float] = None, device=None):
+                 device_ms: Optional[float] = None, device=None, twin: bool = True):
         self.name, self.id = name, id
         self.start_ns, self.end_ns = start_ns, end_ns
         self.thread, self.parent = thread, parent
         self.nbytes, self.device_ms = nbytes, device_ms
-        self._device, self._pair, self._rf = device, None, None
+        self._device, self._pair, self._rf, self._twin = device, None, None, twin
 
     @property
     def ms(self) -> float:
@@ -75,11 +81,14 @@ class Span:
     def __enter__(self) -> "Span":
         stack = _stack()
         self.parent = stack[-1] if stack else None
+        if self.id is None and self.parent is not None:
+            self.id = self.parent.id
         self.thread = threading.get_ident()
         stack.append(self)
         self.start_ns = time.monotonic_ns()
-        self._rf = torch.profiler.record_function(self.name)
-        self._rf.__enter__()
+        if self._twin:
+            self._rf = torch.profiler.record_function(self.name)
+            self._rf.__enter__()
         if self._device is not None and self._device.type == "cuda":
             self._pair = (_event(), _event())
             self._pair[0].record(torch.cuda.current_stream(self._device))
@@ -88,8 +97,9 @@ class Span:
     def __exit__(self, *exc) -> None:
         if self._pair is not None:
             self._pair[1].record(torch.cuda.current_stream(self._device))
-        self._rf.__exit__(*exc)
-        self._rf = None
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
         self.end_ns = time.monotonic_ns()
         _stack().pop()
         _ring[next(_written) % CAPACITY] = self
@@ -112,7 +122,7 @@ def _event() -> torch.cuda.Event:
 
 
 def _read_events() -> None:
-    """Read the device time of every copy span whose end event has completed
+    """Read the device time of every span whose end event has completed
     (``query`` does not wait) and return its events to the pool."""
     with _pending_lock:
         while _pending and _pending[0]._pair[1].query():
@@ -123,14 +133,17 @@ def _read_events() -> None:
                 _events.extend((start, end))
 
 
-def span(name: str, id=None, copy=None, nbytes: int = 0):
+def span(name: str, id=None, copy=None, nbytes: int = 0, device=None):
     """A named region (see the module's docstring). ``copy``: the device of a
-    host<->device copy the region holds, ``nbytes`` the bytes it moves."""
+    host<->device copy the region holds, ``nbytes`` the bytes it moves;
+    ``device``: the device of the device work the region issues, timed by
+    events and kept out of the profiler's trace."""
     if not _on:
         return _NULL
-    if copy is not None:
+    timed = copy if copy is not None else device
+    if timed is not None:
         _read_events()
-    return Span(name, id, nbytes=nbytes, device=copy)
+    return Span(name, id, nbytes=nbytes, device=timed, twin=device is None)
 
 
 def anchor() -> int:
@@ -166,7 +179,8 @@ def to_trace_ns(t_ns: int) -> int:
 
 def spans(t0: float, t1: float) -> List[Span]:
     """The spans recorded that overlap [t0, t1] (s on ``now()``'s clock), by
-    start; copy spans carry ``device_ms`` where their events have completed."""
+    start; copy and device spans carry ``device_ms`` where their events have
+    completed."""
     _read_events()
     a, b = round(t0 * 1e9), round(t1 * 1e9)
     held = [s for s in list(_ring) if s is not None and s.start_ns <= b and s.end_ns >= a]

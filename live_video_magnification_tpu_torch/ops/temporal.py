@@ -127,12 +127,18 @@ def ideal_bandpass_operator(w_static: int, length: int, cutoff_lo: float, cutoff
                             framerate: float, device: torch.device) -> torch.Tensor:
     """The [W, W] circulant operator for window length L: rows and columns
     >= L are zero. It depends only on its arguments, so it is built once on
-    ``device`` per key and then reused: the steady step makes no operator."""
-    b = ideal_bandpass_circulant_col(w_static, length, cutoff_lo, cutoff_hi, framerate, device)
-    n = torch.arange(w_static, device=b.device)[:, None]
-    m = torch.arange(w_static, device=b.device)[None, :]
-    bmat = b[torch.remainder(n - m, max(length, 1))]
-    return torch.where((n < length) & (m < length), bmat, 0.0)
+    ``device`` per key and then reused: the steady step makes no operator.
+    Each build is one ``color.operator`` span of the port's recorder."""
+    # imported here: importing the engine package imports the models
+    from live_video_magnification_tpu_torch.engine.profiling import span
+
+    with span("color.operator", device=device):
+        b = ideal_bandpass_circulant_col(w_static, length, cutoff_lo, cutoff_hi, framerate,
+                                         device)
+        n = torch.arange(w_static, device=b.device)[:, None]
+        m = torch.arange(w_static, device=b.device)[None, :]
+        bmat = b[torch.remainder(n - m, max(length, 1))]
+        return torch.where((n < length) & (m < length), bmat, 0.0)
 
 
 def ideal_bandpass_apply(window: torch.Tensor, count: int, cutoff_lo: float,

@@ -817,6 +817,39 @@ def test_the_pinned_readback_spans_each_frames_copies(cuda, time_parallel):
     assert all(s.device_ms is not None for s in readbacks)
 
 
+def test_the_colour_spans_read_their_device_time_on_the_card(cuda):
+    """With the recorder on: each colour step's spans carry the frame's id
+    and, once the frame is back, their CUDA events' time; each new window
+    length builds its operator in one ``color.operator`` span."""
+    import time
+
+    from live_video_magnification_tpu_torch.engine import profiling
+    from live_video_magnification_tpu_torch.models import color
+    from live_video_magnification_tpu_torch.ops.temporal import ideal_bandpass_operator
+
+    rng = np.random.default_rng(3)
+    frames = torch.from_numpy(rng.integers(0, 256, (6, 3, 48, 64), dtype=np.uint8)).to(cuda)
+    dyn = color.ColorDynParams(100.0, 0.8, 1.2)
+    state = color.init_state(48, 64, 3, 3, 8.0, device=cuda)
+    ideal_bandpass_operator.cache_clear()
+    t0 = time.monotonic()
+    profiling.enable()
+    try:
+        for i in range(6):
+            with profiling.span("consumer.step", i):
+                state, out = color.step(state, frames[i], dyn, levels=3, framerate=8.0)
+        out.cpu()
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize(cuda)
+    held = profiling.spans(t0, time.monotonic())
+    parts = [s for s in held if s.name in ("color.pyramid", "color.bandpass", "color.reconstruct")]
+    assert len(parts) == 2 + 3 * 5  # the first frame passes through
+    assert all(s.parent.name == "consumer.step" and s.id == s.parent.id for s in parts)
+    assert all(s.device_ms is not None and s.device_ms > 0 for s in parts)
+    assert [s.id for s in held if s.name == "color.operator"] == [1, 2, 3, 4, 5]
+
+
 # ---------------------------------------------------------------- K10 and the sharded step
 
 HALO_SHAPES = [(33, 13), (97, 31), (135, 61), (6, 33, 13), (6, 135, 61)]

@@ -1,10 +1,13 @@
 """The port's span recorder (``engine/profiling.py``) on the CPU.
 
 Off, a span is a shared null context that records nothing and enters no
-``record_function``; on, spans nest by thread, the ring keeps its bound, the
-live consumer and the clip export open their spans at the layer boundaries,
-each span lands on the profiler's clock beside its ``record_function`` twin,
-and the outputs are bit for bit those of a run with the recorder off.
+``record_function``; on, spans nest by thread, take their parent's id where
+they have none, the ring keeps its bound, the live consumer and the clip
+export open their spans at the layer boundaries, the colour step opens its
+three inside the consumer's and one for each operator it builds, each copy
+span lands on the profiler's clock beside its ``record_function`` twin while
+a device span has none, and the outputs are bit for bit those of a run with
+the recorder off.
 """
 
 import statistics
@@ -29,6 +32,7 @@ from live_video_magnification_tpu_torch.models.params import (
     ProcessorConfig,
     to_params,
 )
+from live_video_magnification_tpu_torch.ops.temporal import ideal_bandpass_operator
 
 torch.set_num_threads(2)
 
@@ -38,6 +42,13 @@ H, W = 24, 32
 def _cfg(mode=MagnificationMode.LAPLACE) -> ProcessorConfig:
     return ProcessorConfig(magnification=to_params(
         MagUiValues(mode=mode, amplification=20, levels=2, chroma=30)))
+
+
+def _color_cfg(fps: float = 8.0) -> ProcessorConfig:
+    """Colour at ``fps``: a window of optimal_buffer_size(fps) frames (16 at 8 fps)."""
+    return ProcessorConfig(magnification=to_params(MagUiValues(
+        mode=MagnificationMode.COLOR, amplification=100, low=0.8, high=1.2, levels=2,
+        capture_fps=fps)))
 
 
 def _clip(t: int, seed: int = 0) -> np.ndarray:
@@ -93,6 +104,36 @@ def test_spans_nest_by_thread(recorder):
     assert got["x.outer"].thread != got["y.outer"].thread
 
 
+def test_a_span_without_an_id_takes_its_parents(recorder):
+    with profiling.span("outer", 7):
+        with profiling.span("inner"):
+            with profiling.span("own", 9):
+                with profiling.span("deepest"):
+                    pass
+    with profiling.span("alone"):
+        pass
+    got = {s.name: s.id for s in recorder()}
+    assert got == {"outer": 7, "inner": 7, "own": 9, "deepest": 9, "alone": None}
+
+
+def test_copy_spans_read_as_before_and_device_spans_have_no_twin(recorder, monkeypatch):
+    """A ``copy=`` span enters its ``record_function`` twin and carries its
+    bytes, as before; a ``device=`` span enters none; neither has CUDA events
+    off a card."""
+    entered = []
+    twin = torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: entered.append(name) or twin(name))
+    cpu = torch.device("cpu")
+    with profiling.span("x.copy", 3, copy=cpu, nbytes=64):
+        with profiling.span("x.region", device=cpu):
+            pass
+    copy, region = sorted(recorder(), key=lambda s: s.start_ns)
+    assert entered == ["x.copy"]
+    assert (copy.name, copy.id, copy.nbytes, copy.device_ms) == ("x.copy", 3, 64, None)
+    assert (region.parent, region.id, region.nbytes, region.device_ms) == (copy, 3, 0, None)
+
+
 def test_the_ring_keeps_its_bound(recorder, monkeypatch):
     monkeypatch.setattr(profiling, "CAPACITY", 8)
     monkeypatch.setattr(profiling, "_ring", [None] * 8)
@@ -113,10 +154,10 @@ class _KeepAll(LatestFrameMailbox):
         self.all.append(frame)
 
 
-def _consume(frames: np.ndarray):
+def _consume(frames: np.ndarray, cfg: ProcessorConfig = None):
     queue = BoundedQueue(4, OverflowPolicy.BLOCK)
     mailbox = _KeepAll()
-    chain = ProcessingChain(queue, mailbox, AtomicConfig(_cfg()), Instrumentation(), "cpu")
+    chain = ProcessingChain(queue, mailbox, AtomicConfig(cfg or _cfg()), Instrumentation(), "cpu")
     chain.start()
     try:
         for seq, data in enumerate(frames):
@@ -147,6 +188,35 @@ def test_the_consumer_spans_each_frame(recorder):
         assert kids[-1].end_ns <= frame.end_ns
         assert kids[0].nbytes == H * W * 3 and kids[2].nbytes == 2 * H * W * 3
         assert kids[0].device_ms is None  # CUDA events only on a card
+
+
+def test_the_colour_step_spans_each_frame_under_the_consumer(recorder):
+    _consume(_clip(4), _color_cfg())
+    held = recorder()
+    steps = {s.id: s for s in held if s.name == "consumer.step"}
+    assert sorted(steps) == [0, 1, 2, 3]
+    parts = ["color.pyramid", "color.bandpass", "color.reconstruct"]
+    for seq, step in steps.items():
+        kids = [s for s in held if s.parent is step]
+        # the first frame passes through once the window holds it: nothing to reconstruct
+        assert [s.name for s in kids] == (parts[:2] if seq == 0 else parts)
+        assert all(s.id == seq and s.device_ms is None for s in kids)
+        assert all(a.end_ns <= b.start_ns for a, b in zip(kids, kids[1:]))
+        assert step.start_ns <= kids[0].start_ns and kids[-1].end_ns <= step.end_ns
+
+
+def test_an_operator_is_built_once_for_each_window_length(recorder):
+    """The window of 16 fills over the first 16 frames: frames 1..15 (lengths
+    2..16) each build their operator inside ``color.bandpass``; the full
+    window's frames build none."""
+    ideal_bandpass_operator.cache_clear()
+    _consume(_clip(24), _color_cfg(fps=8.0))
+    held = recorder()
+    builds = [s for s in held if s.name == "color.operator"]
+    assert [s.id for s in builds] == list(range(1, 16))
+    assert all(s.parent.name == "color.bandpass" and s.parent.id == s.id for s in builds)
+    _consume(_clip(3), _color_cfg(fps=8.0))  # a new stream: every length is cached
+    assert len([s for s in recorder() if s.name == "color.operator"]) == 15
 
 
 @pytest.mark.parametrize("time_parallel", [False, True])
@@ -219,6 +289,39 @@ def test_outputs_are_the_same_with_the_recorder_on():
     finally:
         profiling.disable()
     assert len(off) == len(on) == 6 + 10
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_the_colour_frames_are_the_same_with_the_recorder_off(monkeypatch):
+    """Off, the colour step and the operator builds record nothing and enter
+    no ``record_function``; the frames are bit for bit those of a run with
+    the recorder on."""
+    clip = _clip(20, seed=4)
+    cfg = _color_cfg()
+
+    def outputs():
+        ideal_bandpass_operator.cache_clear()
+        exported = [x for pair in export_frames(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)),
+                                                cfg, chunk_size=8, device="cpu") for x in pair]
+        return exported + [x for pair in _consume(clip, cfg) for x in pair]
+
+    def entered(name):
+        raise AssertionError(f"record_function({name!r}) entered while off")
+
+    t0 = time.monotonic()
+    with monkeypatch.context() as m:
+        m.setattr(torch.profiler, "record_function", entered)
+        off = outputs()
+    assert profiling.spans(t0, time.monotonic()) == []
+    profiling.enable()
+    try:
+        on = outputs()
+    finally:
+        profiling.disable()
+    assert {"color.pyramid", "color.operator"} <= {s.name for s in
+                                                    profiling.spans(t0, time.monotonic())}
+    assert len(off) == len(on) == 3 * 2 + 20 * 2  # three chunks of both panes, 20 pairs
     for a, b in zip(off, on):
         np.testing.assert_array_equal(a, b)
 
