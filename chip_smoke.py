@@ -32,7 +32,9 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      shares and (amplify) the exactness floor at each active level;
   3. slice at 4K: 2160x3840, levels=6, phase mode, jnp tail, through
      MagnificationChain.process (HWC u8) and ClipProcessor.process_chunk on the
-     same frames; outputs bit-equal, launch counts per frame as expected,
+     same frames; outputs bit-equal, launch counts per frame as expected
+     (the chain's by the host counters; a chunk of ClipProcessor's, whose
+     frames replay its step's CUDA graph, by the profiler's device kernels),
      frames magnified after the first; steady ms/frame, fps, peak memory and a
      profiler breakdown of device time;
   4. the same slice under every other configuration (LVMT_TAIL pallas, mxu,
@@ -915,6 +917,12 @@ def slice_4k(torch, dev, st, tl, frames):
         expected = expected_counts(t, {}, st, tl)
         if launches != expected:
             raise AssertionError(f"4K chain launches {launches} != expected {expected}")
+        # the chain's launches by device kernel (conv9 and lp9_decimate are
+        # both stencil9_kernel), none of the tail's
+        by_kernel = {"stencil9_kernel": launches["conv9"] + launches["lp9_decimate"],
+                     "band5_kernel": launches["band5"], "inject9_kernel": launches["lp9_inject"],
+                     "build_level_kernel": launches["riesz_build_level"],
+                     **{k: 0 for k in TAIL_KERNELS}}
         launches = {k: launches[k] for k in PER_FRAME}
         if not np.array_equal(chain_out[0], frames[0]):
             raise AssertionError("4K frame 0 is not the passthrough of the input")
@@ -925,17 +933,22 @@ def slice_4k(torch, dev, st, tl, frames):
         # the same frames through the clip processor, device-resident input
         proc = ClipProcessor(cfg, h, w, 3, device=dev)
         tchw = torch.from_numpy(np.ascontiguousarray(frames.transpose(0, 3, 1, 2))).to(dev)
-        reset_counts(st, tl)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         processed, _ = proc.process_chunk(tchw)  # returns host arrays: synchronizes
         clip_s = time.perf_counter() - t0
-        clip_launches = {k: st.LAUNCHES[k] for k in PER_FRAME}
-        if clip_launches != launches:
-            raise AssertionError(f"4K clip launches {clip_launches} != expected {launches}")
         clip_out = processed.transpose(0, 2, 3, 1)
         if not np.array_equal(clip_out, chain_out):
             raise AssertionError("4K ClipProcessor output differs from the chain's")
+        # its frames after the first replay the step's CUDA graph, whose
+        # kernels the host counters never see: count a replayed chunk's from
+        # the device trace
+        prof = profile_run(torch, lambda: proc.process_chunk(tchw), t)
+        replayed = {k: sum(r["calls"] for r in prof["kernels"] if k in r["name"])
+                    for k in by_kernel}
+        if replayed != by_kernel:
+            raise AssertionError(f"4K clip replayed kernels {replayed} != the chain's {by_kernel}")
+        del proc
 
         steady = step_s[2:]
         steady_ms = 1e3 * sum(steady) / len(steady)
@@ -945,6 +958,8 @@ def slice_4k(torch, dev, st, tl, frames):
             chain_steady_fps=1e3 / steady_ms, clip_ms_per_frame_with_readback=1e3 * clip_s / t,
             clip_fps=t / clip_s, peak_memory_bytes=peak, launches=launches,
             launches_per_frame={k: v // t for k, v in launches.items()},
+            clip_replayed_kernels=replayed, clip_replayed_kernels_per_frame=(
+                prof["device_kernels_per_frame"]),
             changed_pixels_after_frame0=moved, chain_equals_clip=True)
 
         # where the device time goes, over two steady frames of the chain

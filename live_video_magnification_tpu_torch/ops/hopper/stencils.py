@@ -51,7 +51,8 @@ reference's MIN_FUSED_DIM.
 
 ``LAUNCHES`` counts the kernel launches of each function with f32 operands,
 ``LAUNCHES_BF16`` those of the bf16 operand arms; a run that resets them can
-show which kernels, and which arms, its main path went through.
+show which kernels, and which arms, its main path went through. They count
+calls on the host: a CUDA graph's replay launches its kernels without one.
 """
 
 from __future__ import annotations

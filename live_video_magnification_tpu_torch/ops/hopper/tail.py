@@ -41,6 +41,8 @@ package does below its own gate. The functions themselves take any size.
 ``LAUNCHES`` counts the kernel launches of each entry point with f32
 operands, ``LAUNCHES_BF16`` those of riesz_amplify_mxu's bf16 operand arm; a
 run that resets them can show which kernels its main path went through.
+They count calls on the host: a CUDA graph's replay launches its kernels
+without one.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
 """The port's phase slice end to end on the CPU against the reference package:
 the step, the chain (first-frame passthrough, cutoff change, degenerate
 cutoff, ROI + downscale + grayscale), state carried across from a JAX run,
-clip processing and checkpoints, and the device rule of the entry points.
+clip processing and checkpoints, the rule that sends the clip export's
+frames through its CUDA graph and the host inputs of the steps it captures,
+and the device rule of the entry points.
 
 Bars: >= 40 dB PSNR per frame (the reference suite's oracle bar) and at most
 1 u8 LSB anywhere; bit-equal where the port runs the same step twice.
@@ -17,6 +19,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from live_video_magnification_tpu.models import riesz as jriesz
 from live_video_magnification_tpu.models.chain import MagnificationChain as JChain
@@ -27,7 +31,7 @@ from live_video_magnification_tpu_torch.convert import (
     riesz_state_from_jax,
     state_to_numpy,
 )
-from live_video_magnification_tpu_torch.export.batch import ClipProcessor, export_frames
+from live_video_magnification_tpu_torch.export.batch import ClipProcessor, export_frames, replays
 from live_video_magnification_tpu_torch.models import params as tparams
 from live_video_magnification_tpu_torch.models import riesz as triesz
 from live_video_magnification_tpu_torch.models.chain import MagnificationChain as TChain
@@ -229,6 +233,127 @@ def test_clip_processor_equals_chain_and_resumes_from_checkpoint(tmp_path):
     _, tother = _cfg_pair(levels=2)
     with pytest.raises(ValueError, match="different configuration"):
         ClipProcessor(tother, H, W, 3, device="cpu").load_checkpoint(str(tmp_path / "ck"))
+
+
+@pytest.mark.parametrize("mode,gray,device,time_parallel,count,flags,replayed", [
+    ("phase", False, "cpu", False, 3, {}, False),
+    ("laplace", False, "cpu", False, 3, {}, False),
+    ("phase", False, "cuda", True, 3, {}, False),
+    ("laplace", False, "cuda", True, 3, {}, False),
+    ("color", False, "cuda", False, 3, {}, False),
+    ("none", False, "cuda", False, 3, {}, False),
+    ("phase", True, "cuda", False, 3, {}, False),  # phase on gray: the identity
+    ("phase", False, "cuda", False, 0, {}, False),
+    ("laplace", False, "cuda", False, 0, {}, False),
+    ("phase", False, "cuda", False, 3, {"reset_filters": True}, False),
+    ("phase", False, "cuda", False, 3, {"force_init": True}, False),
+    ("phase", False, "cuda", False, 3, {}, True),
+    ("laplace", False, "cuda", False, 1, {}, True),
+    ("laplace", True, "cuda", False, 3, {}, True),
+], ids=["cpu-phase", "cpu-laplace", "time_parallel-phase", "time_parallel-laplace", "color",
+        "identity", "phase-gray", "first-phase", "first-laplace", "reset_filters",
+        "force_init", "steady-phase", "steady-laplace", "steady-laplace-gray"])
+def test_the_clip_export_replays_its_step_graph_on_steady_phase_and_laplace_frames_only(
+        mode, gray, device, time_parallel, count, flags, replayed):
+    """``export/batch.py::replays``, the rule that sends a frame of the
+    sequential clip export on a card through the captured step: never on the
+    CPU, time-parallel, in colour or the identity; eager on the first frame
+    and on a phase frame that resets or re-inits its filters. On the CPU the
+    export stays eager: no graph, frames the chain's."""
+    ui = tparams.defaults_for(tparams.MagnificationMode(mode))
+    ui.levels = 3
+    cfg = tparams.ProcessorConfig(grayscale=gray, magnification=tparams.to_params(ui))
+    tc = TChain(device="cpu")
+    key = tc.static_key(cfg, H, W, 3)
+    dyn = tc._dyn_params(cfg, key)
+    if flags:
+        dyn = dyn._replace(**flags)
+    assert replays(key, torch.device(device), time_parallel, count, dyn) is replayed
+    if device == "cpu":
+        clip = _clip()[:3]
+        proc = ClipProcessor(cfg, H, W, 3, device="cpu")
+        processed, _ = proc.process_chunk(np.ascontiguousarray(clip.transpose(0, 3, 1, 2)))
+        assert proc._graph is None
+        per_frame = np.stack([tc.process(f, cfg)[0].numpy() for f in clip])
+        np.testing.assert_array_equal(processed.transpose(0, 2, 3, 1), per_frame)
+
+
+class _Issued(TorchDispatchMode):
+    """The ops a call issues, each with its host arguments and, for each
+    tensor it reads, its shape, its dtype and where it comes from (a leaf
+    of the carried state, the frame, or the op that made it): what a CUDA
+    graph captured from that call holds."""
+
+    def __init__(self, state, frame):
+        super().__init__()
+        self.ops, self.made = [], {}
+        self.given = {x.data_ptr(): f"state{i}" for i, x in enumerate(tree_leaves(state))
+                      if isinstance(x, torch.Tensor)}
+        self.given[frame.data_ptr()] = "frame"
+
+    def _read(self, x):
+        if not isinstance(x, torch.Tensor):
+            return repr(x)
+        p = x.data_ptr()
+        return tuple(x.shape), x.dtype, self.given.get(p) or self.made.get(p, "other")
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        self.ops.append((str(func), tuple(map(self._read, tree_leaves((args, kwargs))))))
+        out = func(*args, **kwargs)
+        for j, x in enumerate(tree_leaves(out)):
+            if isinstance(x, torch.Tensor):
+                self.made[x.data_ptr()] = (len(self.ops), j)
+        return out
+
+
+def _issued(step, state, frame, dyn):
+    with _Issued(state, frame) as rec:
+        step(state, frame, dyn)
+    return rec.ops
+
+
+@pytest.mark.parametrize("mode,altered", [("phase", False), ("laplace", False), ("phase", True)],
+                         ids=["phase", "laplace", "phase-count-branch"])
+def test_a_replayed_step_branches_only_on_what_replays_reads(mode, altered, monkeypatch):
+    """The clip export's CUDA graph (``export/batch.py::_StepGraph``) replays
+    the ops of the frame it captured, whatever the host inputs of a later
+    frame. So every steady frame that ``replays`` admits has to issue the
+    same ops, on the same shapes, sources and host arguments, whatever its
+    ``count``, and a flag of ``dyn`` that changes them has to be one that
+    ``replays`` reads. The first frame's branch is seen; a step with a host
+    branch on ``count`` past the first frame (``altered``) is caught."""
+    from live_video_magnification_tpu_torch.models.chain import _build_step
+
+    if altered:
+        step = triesz.step
+
+        def with_a_count_branch(state, frame, dyn, **kw):
+            new_state, out = step(state, frame, dyn, **kw)
+            return new_state, (out // 2 + 3 if state.count > 2 else out)
+
+        monkeypatch.setattr(triesz, "step", with_a_count_branch)
+    ui = tparams.defaults_for(tparams.MagnificationMode(mode))
+    ui.levels = 3
+    cfg = tparams.ProcessorConfig(magnification=tparams.to_params(ui))
+    tc = TChain(device="cpu")
+    key = tc.static_key(cfg, H, W, 3)
+    dyn = tc._dyn_params(cfg, key)
+    chain_step = _build_step(key, torch.device("cpu"))
+    frames = [torch.from_numpy(np.ascontiguousarray(f.transpose(2, 0, 1))) for f in _clip()[:2]]
+    state = chain_step.raw_fn(chain_step.init_state(), frames[0], dyn)[0]
+    cuda = torch.device("cuda")
+    issued = lambda count, d=dyn: _issued(chain_step.raw_fn, state._replace(count=count),
+                                          frames[1], d)
+    steady = issued(1)
+    assert issued(0) != steady and not replays(key, cuda, False, 0, dyn)
+    varied = [c for c in (2, 3, 63, 64, 2**31) if issued(c) != steady]
+    assert all(replays(key, cuda, False, c, dyn) for c in (1, 2, 3, 63, 64, 2**31))
+    assert varied == ([3, 63, 64, 2**31] if altered else [])
+    flags = {f for f, v in dyn._asdict().items()
+             if isinstance(v, bool) and issued(1, dyn._replace(**{f: not v})) != steady}
+    assert flags == ({"reset_filters", "force_init"} if mode == "phase" else set())
+    assert not any(replays(key, cuda, False, 1, dyn._replace(**{f: True})) for f in flags)
 
 
 def test_dynamic_params_match_the_reference_chain():

@@ -4,7 +4,8 @@
 the card against the CPU, the motion and colour modes (step, chain and
 ClipProcessor) on the card against the CPU, the time-parallel clip path
 of all three modes against the sequential one and the CPU, ClipProcessor's
-pinned readback on its copy stream against a plain ``.cpu()``, and the live
+pinned readback on its copy stream against a plain ``.cpu()``, its step
+replayed as a CUDA graph against the eager step, and the live
 engine (``PlaybackController``'s stencil launches) and the ``Exporter`` on the
 card.
 
@@ -815,6 +816,160 @@ def test_the_pinned_readback_spans_each_frames_copies(cuda, time_parallel):
     readbacks = [s for s in held if s.name == "export.readback"]
     assert [(s.id, s.nbytes) for s in readbacks] == [(0, 3 * frame), (3, 2 * frame)]
     assert all(s.device_ms is not None for s in readbacks)
+
+
+# ---------------------------------------------------------------- the clip export's step graph
+
+def _launched(proc, chunk, traced=False):
+    """``proc.process_chunk(chunk)``, the increments of the kernel wrappers'
+    host counters over it (stencils and tail, f32 and bf16) and, ``traced``,
+    the device kernels it ran by name and count (torch.profiler; copies and
+    memsets left out, as ``launches_per_frame.export`` leaves them)."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+
+    counters = (stencils.LAUNCHES, stencils.LAUNCHES_BF16, tail.LAUNCHES, tail.LAUNCHES_BF16)
+    before = [dict(c) for c in counters]
+    if not traced:
+        return proc.process_chunk(chunk), None, _since(counters, before)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        panes = proc.process_chunk(chunk)
+        torch.cuda.synchronize()
+    kernels = Counter({e.key: e.count for e in prof.key_averages()
+                       if e.device_type != DeviceType.CPU and e.self_device_time_total > 0
+                       and not e.key.startswith(("Memcpy", "Memset", "Activity Buffer"))})
+    return panes, kernels, _since(counters, before)
+
+
+def _since(counters, before):
+    return [{k: v - b[k] for k, v in c.items()} for c, b in zip(counters, before)]
+
+
+@pytest.mark.parametrize("mode,h,w,levels,fast", [("phase", 540, 960, 4, False),
+                                                  ("phase", 540, 960, 4, True),
+                                                  ("laplace", 720, 1280, 5, False)],
+                         ids=["phase", "phase-fast", "laplace"])
+def test_the_step_graph_equals_the_eager_step_bit_for_bit(cuda, mode, h, w, levels, fast,
+                                                           monkeypatch, tmp_path):
+    """ClipProcessor on the card replays its step as a CUDA graph from frame
+    1 on: three chunks of 8 bit for bit the eager processor's (phase at
+    540x960 levels 4, whose band levels all take K1-K4, in f32 and under the
+    ``--fast`` flags, whose carried band levels are bf16; Laplace at 720p
+    levels 5), the first frame's passthrough included; a replayed chunk runs
+    on the card every kernel the eager chunk runs, as many times, and no
+    other kernel than the copies into the static state (the device trace:
+    the host counters see no replay); each chunk's panes unchanged after the
+    later chunks; a checkpoint after chunk 1 resumed by a fresh processor,
+    and loaded back into the graphed one; one ``export.replay`` inside each
+    replayed frame's ``export.step``."""
+    import time
+
+    from live_video_magnification_tpu_torch.engine import profiling
+    from live_video_magnification_tpu_torch.export import batch
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    if fast:
+        for flag, value in FAST.items():
+            monkeypatch.setenv(f"LVMT_{flag.upper()}", value)
+    cfg = _mode_cfg(mode, levels, 30.0)
+    tchw = np.ascontiguousarray(moving_clip(24, h, w, seed=13).transpose(0, 3, 1, 2))
+    chunks = [tchw[k:k + 8] for k in (0, 8, 16)]
+    with monkeypatch.context() as m:
+        m.setattr(batch, "replays", lambda *args: False)
+        eager = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+        want = [_launched(eager, c, traced=k == 1) for k, c in enumerate(chunks)]
+        assert eager._graph is None
+    if mode == "phase" and not fast:
+        per_frame = stencil_launches(h, w, levels)
+        assert per_frame["riesz_build_level"] == 0 < per_frame["conv9"]
+        assert want[1][2][0] == {k: 8 * v for k, v in per_frame.items()}
+    if fast:
+        assert any(want[1][2][1].values())  # the bf16 arms' launches
+    np.testing.assert_array_equal(want[0][0][0][0], tchw[0])  # the first frame passes through
+
+    graphed = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+    t0 = time.monotonic()
+    profiling.enable()
+    try:
+        got = [_launched(graphed, chunks[0])]
+        kept = [x.copy() for x in got[0][0]]
+        graphed.save_checkpoint(str(tmp_path / "ck"))
+        got += [_launched(graphed, c, traced=k == 1) for k, c in enumerate(chunks) if k]
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize(cuda)
+    assert isinstance(graphed._graph, batch._StepGraph)
+    if fast:
+        assert graphed.state.old[0].lowpass.dtype == torch.bfloat16
+    for (panes, _, _), (ref, _, _) in zip(got, want):
+        for g, r in zip(panes, ref):
+            np.testing.assert_array_equal(g, r)
+    for g, k in zip(got[0][0], kept):
+        np.testing.assert_array_equal(g, k)
+    (_, replayed, counted), (_, ref_kernels, _) = got[1], want[1]
+    lost, extra = ref_kernels - replayed, replayed - ref_kernels
+    assert not lost and all("copy" in k.lower() or "memcpy" in k.lower() for k in extra), (
+        lost, extra)
+    if mode == "phase":
+        assert any(k in name for k in ("stencil9_kernel", "band5_kernel") for name in replayed)
+    assert not any(v for c in counted for v in c.values())  # no wrapper is called
+    held = profiling.spans(t0, time.monotonic())
+    replayed = [s for s in held if s.name == "export.replay"]
+    assert [s.id for s in replayed] == list(range(1, 24))
+    assert all(s.parent.name == "export.step" and s.parent.id == s.id for s in replayed)
+
+    resumed = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+    assert resumed.load_checkpoint(str(tmp_path / "ck")) == 8
+    assert graphed.load_checkpoint(str(tmp_path / "ck")) == 8
+    for proc in (resumed, graphed):
+        for chunk, (ref, _, _) in zip(chunks[1:], want[1:]):
+            for g, r in zip(proc.process_chunk(chunk), ref):
+                np.testing.assert_array_equal(g, r)
+
+
+def test_a_step_that_cannot_be_captured_runs_eagerly(cuda, monkeypatch):
+    """A capture that raises: one warning, then every frame eager, bit for
+    bit, and no ``export.replay``."""
+    import time
+    import warnings
+
+    from live_video_magnification_tpu_torch.engine import profiling
+    from live_video_magnification_tpu_torch.export import batch
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w = 72, 128
+    cfg = _mode_cfg("laplace", 3, 30.0)
+    tchw = np.ascontiguousarray(moving_clip(8, h, w, seed=14).transpose(0, 3, 1, 2))
+    with monkeypatch.context() as m:
+        m.setattr(batch, "replays", lambda *args: False)
+        eager = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+        want = [eager.process_chunk(tchw[:4]), eager.process_chunk(tchw[4:])]
+
+    def refuse(*args, **kwargs):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(torch.cuda, "graph", refuse)
+    proc = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+    t0 = time.monotonic()
+    profiling.enable()
+    try:
+        with pytest.warns(RuntimeWarning, match="CUDA graph"):
+            got = [proc.process_chunk(tchw[:4])]
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")
+            got.append(proc.process_chunk(tchw[4:]))
+    finally:
+        profiling.disable()
+    assert proc._graph is False
+    for g, r in zip(got, want):
+        for a, b in zip(g, r):
+            np.testing.assert_array_equal(a, b)
+    assert not [s for s in profiling.spans(t0, time.monotonic()) if s.name == "export.replay"]
 
 
 def test_the_colour_spans_read_their_device_time_on_the_card(cuda):
