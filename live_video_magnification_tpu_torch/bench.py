@@ -20,9 +20,9 @@ every output (the int sum of out[:, ::64, ::64]) accumulated on the device
 and read back once at the end: that read is the run's only sync, and it is
 timed.
 
-Phase mode reads its kernel flags (LVMT_TAIL, LVMT_PHASE_FUSED, LVMT_BUILD,
-LVMT_MXU_DTYPE, LVMT_PYR_IO, LVMT_TAIL_IO) from the environment once per
-run, as the chain does, and passes them to the step.
+Phase mode reads its kernel flags (``models/riesz.py::KernelFlags``) from
+the environment once per run, as the chain does, and passes them to the
+step.
 
 Flags:
   --small / --res HxW / --levels / --steps / --mode phase|laplace|color
@@ -105,8 +105,8 @@ def _mode_setup(mode: str, h: int, w: int, levels: int, fps_cfg: float, device):
 
         flags = m.env_flags()
         dyn = phase_dyn(fps_cfg)
-        state = m.init_state(h, w, levels, device=device, pyr_io=flags["pyr_io"])
-        step = partial(m.step, levels=levels, **flags)
+        state = m.init_state(h, w, levels, device=device, pyr_io=flags.pyr_io)
+        step = partial(m.step, levels=levels, **flags._asdict())
         clip_parallel = partial(m.process_clip_parallel, levels=levels)
     elif mode == "laplace":
         from live_video_magnification_tpu_torch.models import motion as m

@@ -129,11 +129,9 @@ def cmd_magnify(args) -> int:
     host memory (a long 4K clip never materializes in RAM)."""
     _apply_fast_mode(args)
 
-    import numpy as np
-
     from live_video_magnification_tpu_torch.device import resolve_device
     from live_video_magnification_tpu_torch.export.batch import ClipProcessor
-    from live_video_magnification_tpu_torch.export.exporter import compose
+    from live_video_magnification_tpu_torch.export.exporter import clip_hwc, clip_tchw
     from live_video_magnification_tpu_torch.export.types import SplitMode
     from live_video_magnification_tpu_torch.io.video import (
         VideoWriterStream,
@@ -187,14 +185,8 @@ def cmd_magnify(args) -> int:
     t0 = time.monotonic()
 
     def flush(buf):
-        processed, original = proc.process_chunk(
-            np.ascontiguousarray(np.moveaxis(np.stack(buf), -1, 1)))
-        out_hwc = np.moveaxis(processed, 1, -1)
-        if split is not SplitMode.NONE:
-            orig_hwc = np.moveaxis(original, 1, -1)
-            out_hwc = np.stack([compose(orig_hwc[i], out_hwc[i], split, args.labels)
-                                for i in range(out_hwc.shape[0])])
-        writer.write_chunk(out_hwc)
+        processed, original = proc.process_chunk(clip_tchw(buf))
+        writer.write_chunk(clip_hwc(processed, original, split, args.labels))
         done = proc.cursor
         print(f"\r{done}/{goal if goal is not None else '?'} frames",
               end="", file=sys.stderr)

@@ -44,8 +44,8 @@ from live_video_magnification_tpu_torch.models.chain import MagnificationChain
 from live_video_magnification_tpu_torch.models.params import ProcessorConfig
 
 # The kernel libraries the chain can reach: the stencils (K1-K5 and their
-# bf16 arms) and the tail kernels (K6-K9, under the LVMT_TAIL /
-# LVMT_PHASE_FUSED flags, which a running stream may change).
+# bf16 arms) and the tail kernels (K6-K9, under the kernel flags of
+# models/riesz.py::KernelFlags, which a running stream may change).
 LIVE_LIBRARIES = ("stencils", "tail")
 
 
@@ -61,21 +61,6 @@ def prepare_device(device=None) -> torch.device:
         for name in LIVE_LIBRARIES:
             _build.load_library(name)
     return dev
-
-
-def frame_to_chw(data: np.ndarray) -> np.ndarray:
-    """HWC (decode layout) -> planar CHW, for the batch/raw step paths."""
-    if data.ndim == 2:
-        return data[None]
-    return np.ascontiguousarray(np.moveaxis(data, -1, 0))
-
-
-def chw_to_hwc(arr) -> np.ndarray:
-    """Planar CHW (a tensor, read back explicitly, or an array) -> HWC numpy."""
-    a = arr.detach().cpu().numpy() if isinstance(arr, torch.Tensor) else np.asarray(arr)
-    if a.shape[0] == 1:
-        return a[0]
-    return np.ascontiguousarray(np.moveaxis(a, 0, -1))
 
 
 def hwc_result(t: torch.Tensor) -> np.ndarray:

@@ -102,6 +102,21 @@ def compose(original: Optional[np.ndarray], processed: np.ndarray,
     return canvas
 
 
+def clip_tchw(frames_hwc) -> np.ndarray:
+    """[H, W, C] u8 frames as one contiguous [T, C, H, W] clip."""
+    return np.ascontiguousarray(np.moveaxis(np.stack(frames_hwc), -1, 1))
+
+
+def clip_hwc(processed: np.ndarray, original: Optional[np.ndarray] = None,
+             split: SplitMode = SplitMode.NONE, labels: bool = False) -> np.ndarray:
+    """A [T, C, H, W] processed clip as [T, H, W, C]: a view, or under a
+    ``split`` each frame composed with its ``original`` (``compose``)."""
+    out = np.moveaxis(processed, 1, -1)
+    if split is SplitMode.NONE:
+        return out
+    return np.stack([compose(o, p, split, labels) for o, p in zip(clip_hwc(original), out)])
+
+
 def open_writer(fmt: ExportFormat, path: str, fps: float, size_wh):
     """Codec fallback chain; returns (writer, actual_path, codec_name) or None."""
     import cv2

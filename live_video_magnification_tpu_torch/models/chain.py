@@ -8,6 +8,12 @@ processed frame; live use (``MagnificationChain``) and clip processing
 mode's time-parallel whole-clip form, which ``export/batch.py`` runs after
 the same stateless stages.
 
+This module owns how a step runs: its kernel flags come from
+``models/riesz.py::KernelFlags`` into the static key, and the step carries
+its mode's ``steady`` rule, the frames a ``StepGraph`` may replay (phase
+and Laplace past the first frame; never colour or the identity). A caller
+decides only where a graph may run at all.
+
 Host side: structural tracking and temporal-state reset, level clamping to
 calculateMaxLevels (MagnificationProcessor.cpp:31-34), the Butterworth
 coefficients with the cutoff-change reset and the NaN-degenerate re-init of
@@ -23,11 +29,12 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from live_video_magnification_tpu_torch.convert import tree_leaves, tree_unflatten
 from live_video_magnification_tpu_torch.device import resolve_device
 from live_video_magnification_tpu_torch.models import color as color_mode
 from live_video_magnification_tpu_torch.models import motion as motion_mode
@@ -68,6 +75,9 @@ def preprocess_geometry(p: PreprocessParams, h: int, w: int) -> Tuple[int, int, 
     return y, x, ch, cw, oh, ow
 
 
+_FLAGS = riesz_mode.KernelFlags()  # the defaults
+
+
 class _StaticKey(NamedTuple):
     mode: MagnificationMode
     levels: int          # clamped
@@ -78,17 +88,17 @@ class _StaticKey(NamedTuple):
     grayscale: bool
     geometry: Tuple[int, int, int, int, int, int]
     framerate: float
-    # The kernel flags (LVMT_PHASE_FUSED, LVMT_TAIL, LVMT_BUILD,
-    # LVMT_MXU_DTYPE, LVMT_PYR_IO, LVMT_TAIL_IO), read from the environment
-    # once per frame into the key, so changing a flag builds a new step (and
-    # a new state: pyr_io is the carried pyramid's dtype) instead of reusing
-    # a stale one. Full value strings, as the reference's key.
-    phase_fused: bool = False
-    tail: str = "jnp"
-    build: str = "auto"
-    mxu_dtype: str = "f32"
-    pyr_io: str = "f32"
-    tail_io: str = "f32"
+    # The kernel flags (models/riesz.py::KernelFlags, with its defaults),
+    # read from the environment once per frame into the key, so changing a
+    # flag builds a new step (and a new state: pyr_io is the carried
+    # pyramid's dtype) instead of reusing a stale one. Full value strings, as
+    # the reference's key.
+    phase_fused: bool = _FLAGS.phase_fused
+    tail: str = _FLAGS.tail
+    build: str = _FLAGS.build
+    mxu_dtype: str = _FLAGS.mxu_dtype
+    pyr_io: str = _FLAGS.pyr_io
+    tail_io: str = _FLAGS.tail_io
 
 
 class ChainStep(NamedTuple):
@@ -98,6 +108,9 @@ class ChainStep(NamedTuple):
     raw_fn: Callable   # (state, frame_chw_u8, dyn) -> (state, processed_chw, original_chw)
     init_state: Callable  # () -> state
     key: _StaticKey
+    # (count, dyn) -> whether a StepGraph may replay the frame (the mode's
+    # ``steady``); None where none may. The caller holds ``dyn`` fixed.
+    steady: Optional[Callable]
 
 
 def _build_pre_stages(key: _StaticKey):
@@ -134,7 +147,10 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
     mode, levels = key.mode, key.levels
     preprocess, downscale, gray_stage = _build_pre_stages(key)
 
+    steady = None
     if mode is MagnificationMode.LAPLACE:
+        steady = motion_mode.steady
+
         def model_step(state, frame, dyn):
             return motion_mode.step(state, frame, dyn, levels=levels)
 
@@ -148,11 +164,11 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
             return color_mode.init_state(oh, ow, key.channels, levels, key.framerate,
                                          device=device)
     elif mode is MagnificationMode.PHASE and key.channels >= 3:
+        steady = riesz_mode.steady
+        flags = {f: getattr(key, f) for f in riesz_mode.KernelFlags._fields}
+
         def model_step(state, frame, dyn):
-            return riesz_mode.step(state, frame, dyn, levels=levels, tail=key.tail,
-                                   phase_fused=key.phase_fused, build=key.build,
-                                   mxu_dtype=key.mxu_dtype, pyr_io=key.pyr_io,
-                                   tail_io=key.tail_io)
+            return riesz_mode.step(state, frame, dyn, levels=levels, **flags)
 
         def init():
             return riesz_mode.init_state(oh, ow, levels, device=device, pyr_io=key.pyr_io)
@@ -182,7 +198,62 @@ def _build_step(key: _StaticKey, device: torch.device) -> ChainStep:
         new_state, out, original = _core(state, pre, dyn)
         return new_state, out.permute(1, 2, 0), original.permute(1, 2, 0)
 
-    return ChainStep(step_hwc, step, init, key)
+    return ChainStep(step_hwc, step, init, key, steady)
+
+
+def _tensors(state) -> List[torch.Tensor]:
+    return [x for x in tree_leaves(state) if isinstance(x, torch.Tensor)]
+
+
+class StepGraph:
+    """A step (``raw_fn``) captured as a CUDA graph from ``state``, ``frame``
+    and ``dyn``, and called as ``raw_fn`` is, less ``dyn``, for the frames
+    that its ``ChainStep.steady`` admits.
+
+    The graph reads the carried state from static buffers (``state``, with
+    the host-int ``count``; a state that is not theirs, as a checkpoint's, is
+    copied into them before a replay) and the frame from a static [C, H, W]
+    u8 one, and ends by copying each new state leaf into its buffer (a leaf
+    that passes its input through, as motion's residual, is that buffer
+    already). ``dyn`` is baked in. The capture runs nothing; a warm-up call
+    on a side stream before it sets up what the step sets up on its first
+    call, as ``torch.cuda.graphs`` requires."""
+
+    def __init__(self, raw_fn, state, frame: torch.Tensor, dyn):
+        device = frame.device
+        self.state = tree_unflatten(state, [x.clone() if isinstance(x, torch.Tensor) else x
+                                            for x in tree_leaves(state)])
+        self._leaves = _tensors(self.state)
+        self._frame = frame.clone()
+        with torch.cuda.device(device):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                raw_fn(self.state, self._frame, dyn)
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, stream=side):
+                new, self._out, self._orig = raw_fn(self.state, self._frame, dyn)
+                # one multi-tensor copy: a graph runs each copy_'s memcpy
+                # node as a kernel of its own, 68 a 4K phase frame
+                pairs = [(d, s) for d, s in zip(self._leaves, _tensors(new)) if s is not d]
+                torch._foreach_copy_([d for d, _ in pairs], [s for _, s in pairs])
+
+    def __call__(self, state, frame: torch.Tensor):
+        """(state, processed, original) of ``frame``, as ``raw_fn`` gives them:
+        the state is the static buffers', the panes are new tensors (the
+        processed pane a copy out of the graph's pool, which the next replay
+        overwrites; the original ``frame`` itself where the step passes its
+        input through)."""
+        with torch.cuda.device(frame.device):
+            held = _tensors(state)
+            if any(a is not b for a, b in zip(held, self._leaves)):
+                torch._foreach_copy_(self._leaves, held)
+            self._frame.copy_(frame)
+            self.graph.replay()
+            out = self._out.clone()
+            orig = frame if self._orig is self._frame else self._orig.clone()
+        return self.state._replace(count=state.count + 1), out, orig
 
 
 def parallel_clip_fn(key: _StaticKey) -> Optional[Callable]:
@@ -275,7 +346,7 @@ class MagnificationChain:
         levels = min(max(cfg.magnification.levels, 1), max(max_levels, 1))
         return _StaticKey(
             mode, levels, mag_channels, channels, h, w, bool(cfg.grayscale), geometry,
-            float(cfg.magnification.framerate), **riesz_mode.env_flags(),
+            float(cfg.magnification.framerate), **riesz_mode.env_flags()._asdict(),
         )
 
     def process(self, frame_u8_hwc, cfg: ProcessorConfig):

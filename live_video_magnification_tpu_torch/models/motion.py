@@ -130,6 +130,12 @@ def step(state: MotionState, frame_u8: torch.Tensor, dyn: MotionDynParams, *,
     return MotionState(state.count + 1, tuple(new_hi), tuple(new_lo)), out_u8
 
 
+def steady(count: int, dyn: MotionDynParams) -> bool:
+    """Whether ``step`` issues the ops of every other frame this admits, so a
+    graph may replay it: past the first frame, the step's one host branch."""
+    return count > 0
+
+
 def process_clip(frames_u8: torch.Tensor, dyn: MotionDynParams, *, levels: int,
                  state: Optional[MotionState] = None, device=None
                  ) -> Tuple[MotionState, torch.Tensor]:

@@ -40,6 +40,7 @@ from live_video_magnification_tpu_torch.ops.hopper.stencils import resolve_dtype
 from live_video_magnification_tpu_torch.ops.riesz import (
     MIN_MXU_SIDE,
     RieszLevel,
+    _choice,
     amplify_level,
     amplitude_blur,
     build_riesz_pyramid,
@@ -130,34 +131,52 @@ def init_state(h: int, w: int, levels: int, device=None, pyr_io: str = "f32") ->
 
 def resolve_tail(tail: str) -> str:
     """``tail`` if it names one of TAILS; raises otherwise."""
-    if tail not in TAILS:
-        raise ValueError(f"unknown tail {tail!r}: expected one of {', '.join(TAILS)}")
-    return tail
+    return _choice("tail", tail, TAILS)
 
 
-def resolve_flags(tail: str = "jnp", build: str = "auto", mxu_dtype: str = "f32",
-                  pyr_io: str = "f32", tail_io: str = "f32") -> None:
-    """Raises on any value the port does not implement."""
-    resolve_tail(tail)
-    resolve_build(build)
-    resolve_mxu_dtype(mxu_dtype)
-    resolve_dtype(pyr_io)
-    resolve_dtype(tail_io)
+class KernelFlags(NamedTuple):
+    """``step``'s kernel flags at their defaults (the f32 path), one table:
+    ``FLAG_ENV`` names the variable that sets each, as the reference package
+    names it, and ``_FLAG_CHECK`` raises on a value the port does not
+    implement. Callers read the environment through ``env_flags``."""
+
+    phase_fused: bool = False  # K8 for the phase front and DF-II; on at "1"
+    tail: str = "jnp"          # the per-level tail, one of TAILS
+    build: str = "auto"        # the pyramid build, one of ops/riesz.py::BUILDS
+    mxu_dtype: str = "f32"     # the operands of build and collapse, ops/riesz.py::MXU_DTYPES
+    pyr_io: str = "f32"        # the pyramid planes' dtype, f32 or bf16 (resolve_dtype)
+    tail_io: str = "f32"       # K6's amplitude and change planes' dtype
 
 
-def env_flags() -> dict:
-    """The keywords of ``step`` as the environment sets them: LVMT_TAIL,
-    LVMT_PHASE_FUSED, LVMT_BUILD, LVMT_MXU_DTYPE, LVMT_PYR_IO and
-    LVMT_TAIL_IO, which the reference package reads at trace time. ``step``
-    never reads the environment; its callers read it once, here. Raises on
-    any value the port does not implement."""
-    flags = dict(tail=os.environ.get("LVMT_TAIL", "jnp"),
-                 build=os.environ.get("LVMT_BUILD", "auto"),
-                 mxu_dtype=os.environ.get("LVMT_MXU_DTYPE", "f32"),
-                 pyr_io=os.environ.get("LVMT_PYR_IO", "f32"),
-                 tail_io=os.environ.get("LVMT_TAIL_IO", "f32"))
-    resolve_flags(**flags)
-    return dict(flags, phase_fused=os.environ.get("LVMT_PHASE_FUSED", "0") == "1")
+FLAG_ENV = KernelFlags("LVMT_PHASE_FUSED", "LVMT_TAIL", "LVMT_BUILD", "LVMT_MXU_DTYPE",
+                       "LVMT_PYR_IO", "LVMT_TAIL_IO")
+_FLAG_CHECK = KernelFlags(bool, resolve_tail, resolve_build, resolve_mxu_dtype, resolve_dtype,
+                          resolve_dtype)
+
+
+def resolve_flags(**flags) -> KernelFlags:
+    """``flags`` over the defaults; raises on an unknown flag or value."""
+    resolved = KernelFlags(**flags)
+    for check, value in zip(_FLAG_CHECK, resolved):
+        check(value)
+    return resolved
+
+
+def env_flag(name: str):
+    """Flag ``name`` as the environment sets it; raises on an unknown value."""
+    default = KernelFlags._field_defaults[name]
+    value = os.environ.get(getattr(FLAG_ENV, name))
+    if value is None:
+        return default
+    if isinstance(default, bool):
+        return value == "1"
+    getattr(_FLAG_CHECK, name)(value)
+    return value
+
+
+def env_flags() -> KernelFlags:
+    """Every flag as the environment sets it (``env_flag``)."""
+    return KernelFlags(*map(env_flag, KernelFlags._fields))
 
 
 def _unflat(regs) -> RegPair:
@@ -170,21 +189,13 @@ def _flat(rp: RegPair) -> Tuple[torch.Tensor, ...]:
 
 
 def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
-         levels: int, tail: str = "jnp", phase_fused: bool = False, build: str = "auto",
-         mxu_dtype: str = "f32", pyr_io: str = "f32", tail_io: str = "f32"
-         ) -> Tuple[RieszState, torch.Tensor]:
+         levels: int, **flags) -> Tuple[RieszState, torch.Tensor]:
     """One frame: [3, H, W] uint8 BGR in, (new state, [3, H, W] uint8) out.
 
-    ``build``, ``mxu_dtype`` and ``pyr_io`` select the pyramid build and the
-    collapse's operands as the reference package's LVMT_BUILD,
-    LVMT_MXU_DTYPE and LVMT_PYR_IO do (``ops/riesz.py``); ``tail_io`` is the
-    dtype of K6's amplitude and change planes (LVMT_TAIL_IO). The default
-    values are the f32 path; the four of ``--fast`` are mxu_dtype="bf16",
-    tail="mxu", tail_io="bf16", pyr_io="bf16".
-
-    ``tail`` and ``phase_fused`` select the per-level tail as the reference
-    package's LVMT_TAIL and LVMT_PHASE_FUSED do; the caller resolves them
-    (the chain reads the environment once, into its static key). On every
+    ``flags`` are fields of ``KernelFlags``, each at its default where not
+    given; the four of ``--fast`` are mxu_dtype="bf16", tail="mxu",
+    tail_io="bf16", pyr_io="bf16". ``tail`` and ``phase_fused`` select the
+    per-level tail as the reference package's flags do. On every
     active level whose sides are both at least ``ops/hopper/tail.py::MIN_SIDE``
     (16), in the reference's order of precedence:
 
@@ -204,10 +215,11 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
     Smaller levels take the plain tail. bf16 pyramid planes reach the front,
     K7, K8 and K9 as f32 copies. On a CPU tensor every kernel entry point
     runs its plain version."""
-    resolve_flags(tail, build, mxu_dtype, pyr_io, tail_io)
+    flags = resolve_flags(**flags)
+    tail, phase_fused, mxu_dtype = flags.tail, flags.phase_fused, flags.mxu_dtype
     lab = bgr_to_lab(u8_to_unit_f32(frame_u8))
-    cur = build_riesz_pyramid(lab[0], levels, build=build, mxu_dtype=mxu_dtype,
-                              pyr_io=pyr_io)
+    cur = build_riesz_pyramid(lab[0], levels, build=flags.build, mxu_dtype=mxu_dtype,
+                              pyr_io=flags.pyr_io)
 
     first = state.count == 0
     rebuild_old = first or dyn.reset_filters or dyn.force_init
@@ -280,7 +292,7 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
                       c.riesz.sin)
             fast = {}
             if tail == "mxu" and min(c.lowpass.shape) >= MIN_MXU_SIDE:
-                tio = resolve_dtype(tail_io)
+                tio = resolve_dtype(flags.tail_io)
                 planes = (*(x.to(tio) for x in planes[:3]), stored.lowpass,
                           stored.riesz.cos, stored.riesz.sin)
                 fast = {"bf16": mxu_dtype == "bf16"}
@@ -311,23 +323,25 @@ def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
     return new_state, out_u8
 
 
+def steady(count: int, dyn: RieszDynParams) -> bool:
+    """Whether ``step`` issues the ops of every other frame this admits, so a
+    graph may replay it: past the first frame, and no filter reset or re-init."""
+    return count > 0 and not (dyn.reset_filters or dyn.force_init)
+
+
 def process_clip(frames_u8: torch.Tensor, dyn: RieszDynParams, *, levels: int,
-                 state: Optional[RieszState] = None, device=None, tail: str = "jnp",
-                 phase_fused: bool = False, build: str = "auto", mxu_dtype: str = "f32",
-                 pyr_io: str = "f32", tail_io: str = "f32"
+                 state: Optional[RieszState] = None, device=None, **flags
                  ) -> Tuple[RieszState, torch.Tensor]:
     """[T, 3, H, W] uint8 through ``step`` in order, under the given flags;
     returns (state, outs). Without ``state`` it starts from zero on
     ``device`` (CUDA by default), with ``pyr_io`` band levels."""
     t, _, h, w = frames_u8.shape
     if state is None:
-        state = init_state(h, w, levels, device=device, pyr_io=pyr_io)
+        state = init_state(h, w, levels, device=device, pyr_io=resolve_flags(**flags).pyr_io)
     frames_u8 = frames_u8.to(state.old[0].lowpass.device)
     outs = []
     for i in range(t):
-        state, out = step(state, frames_u8[i], dyn, levels=levels, tail=tail,
-                          phase_fused=phase_fused, build=build, mxu_dtype=mxu_dtype,
-                          pyr_io=pyr_io, tail_io=tail_io)
+        state, out = step(state, frames_u8[i], dyn, levels=levels, **flags)
         outs.append(out)
     return state, torch.stack(outs)
 

@@ -229,7 +229,7 @@ def export_video_distributed(
     export, "devices": the shards of the mesh} and the stage seconds {"decode_s", "process_s", "fetch_s",
     "encode_s", "concat_s", "wall_s"}. ``device``: as for
     ``DistributedClipExporter`` when ``mesh`` is None."""
-    from live_video_magnification_tpu_torch.export.exporter import compose
+    from live_video_magnification_tpu_torch.export.exporter import clip_hwc, clip_tchw
     from live_video_magnification_tpu_torch.export.types import SplitMode
     from live_video_magnification_tpu_torch.io.video import (
         VideoWriterStream,
@@ -313,7 +313,7 @@ def export_video_distributed(
                 f"decoder returned {len(frames)} of {want} frames for chunk {_ci} at "
                 f"{cpos} — the container's frame count is wrong; pass an explicit end= "
                 "within the decodable range")
-        local = np.ascontiguousarray(np.moveaxis(np.stack(frames), -1, 1))  # [T, C, H, W]
+        local = clip_tchw(frames)
         _acc("decode_s", time.monotonic() - t0)
         return local
 
@@ -327,13 +327,8 @@ def export_video_distributed(
             off += b - a
             if partial and rank != 0:
                 continue  # the tail chunk is written once
-            out_hwc = np.moveaxis(seg, 1, -1)
-            if split is not SplitMode.NONE:
-                orig_hwc = np.moveaxis(orig_seg, 1, -1)
-                out_hwc = np.stack([compose(orig_hwc[i], out_hwc[i], split, labels)
-                                    for i in range(out_hwc.shape[0])])
             wtr = VideoWriterStream(f"{base}.c{_ci:04d}s{sh:03d}{ext}", out_fps)
-            wtr.write_chunk(out_hwc)
+            wtr.write_chunk(clip_hwc(seg, orig_seg, split, labels))
             part_paths.append((_ci, sh, wtr.close()))
         _acc("encode_s", time.monotonic() - t0)
 

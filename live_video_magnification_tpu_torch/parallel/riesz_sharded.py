@@ -40,7 +40,6 @@ normalize/amplify :114-144), MagnifyCore.hpp:209-279 (step semantics).
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Callable, ClassVar, List, Sequence, Tuple
 
 import numpy as np
@@ -50,6 +49,7 @@ from live_video_magnification_tpu_torch.models.riesz import (
     RegPair,
     RieszDynParams,
     RieszState,
+    env_flag,
     init_state,
     resolve_tail,
 )
@@ -144,9 +144,10 @@ class _Ops:
     """The tail and the halo exchange of the sharded step.
 
     Every exchange is K10 (ops/hopper/halo.py), whose wrapper runs its plain
-    version on CPU tensors. ``tail``: the port's tail names; None reads
-    LVMT_TAIL once, here, at build time; 'level' (K9) has no sharded form and
-    maps to 'mxu', the closest sharded analogue, as in the reference.
+    version on CPU tensors. ``tail``: the port's tail names; None reads the
+    tail flag (``models/riesz.py::env_flag``) once, here, at build time;
+    'level' (K9) has no sharded form and maps to 'mxu', the closest sharded
+    analogue, as in the reference.
     ``band_parallel``: replicated levels' tails run on one owner device.
     The stencils dispatch on the tensor's device themselves.
 
@@ -160,7 +161,7 @@ class _Ops:
 
     def __init__(self, tail: str | None = None, band_parallel: bool = False):
         if tail is None:
-            tail = os.environ.get("LVMT_TAIL", "jnp")
+            tail = env_flag("tail")
         self.tail = {"level": "mxu"}.get(resolve_tail(tail), tail)
         self.band_parallel = band_parallel
 

@@ -3,7 +3,8 @@ the step, the chain (first-frame passthrough, cutoff change, degenerate
 cutoff, ROI + downscale + grayscale), state carried across from a JAX run,
 clip processing and checkpoints, the rule that sends the clip export's
 frames through its CUDA graph and the host inputs of the steps it captures,
-and the device rule of the entry points.
+the kernel flags' table and the checkpoint digest it feeds, and the device
+rule of the entry points.
 
 Bars: >= 40 dB PSNR per frame (the reference suite's oracle bar) and at most
 1 u8 LSB anywhere; bit-equal where the port runs the same step twice.
@@ -11,6 +12,7 @@ Bars: >= 40 dB PSNR per frame (the reference suite's oracle bar) and at most
 
 import dataclasses
 import functools
+import inspect
 import math
 
 import numpy as np
@@ -35,6 +37,7 @@ from live_video_magnification_tpu_torch.export.batch import ClipProcessor, expor
 from live_video_magnification_tpu_torch.models import params as tparams
 from live_video_magnification_tpu_torch.models import riesz as triesz
 from live_video_magnification_tpu_torch.models.chain import MagnificationChain as TChain
+from live_video_magnification_tpu_torch.models.chain import _build_step, _StaticKey
 from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
 from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
 
@@ -255,11 +258,13 @@ def test_clip_processor_equals_chain_and_resumes_from_checkpoint(tmp_path):
         "force_init", "steady-phase", "steady-laplace", "steady-laplace-gray"])
 def test_the_clip_export_replays_its_step_graph_on_steady_phase_and_laplace_frames_only(
         mode, gray, device, time_parallel, count, flags, replayed):
-    """``export/batch.py::replays``, the rule that sends a frame of the
-    sequential clip export on a card through the captured step: never on the
-    CPU, time-parallel, in colour or the identity; eager on the first frame
-    and on a phase frame that resets or re-inits its filters. On the CPU the
-    export stays eager: no graph, frames the chain's."""
+    """The step's ``steady`` rule (``models/chain.py::ChainStep``) and
+    ``export/batch.py::replays``, which sends a frame of the sequential clip
+    export on a card through the captured step where that rule admits it:
+    never on the CPU, time-parallel, in colour or the identity (no rule);
+    eager on the first frame and on a phase frame that resets or re-inits
+    its filters. On the CPU the export stays eager: no graph, frames the
+    chain's."""
     ui = tparams.defaults_for(tparams.MagnificationMode(mode))
     ui.levels = 3
     cfg = tparams.ProcessorConfig(grayscale=gray, magnification=tparams.to_params(ui))
@@ -268,7 +273,11 @@ def test_the_clip_export_replays_its_step_graph_on_steady_phase_and_laplace_fram
     dyn = tc._dyn_params(cfg, key)
     if flags:
         dyn = dyn._replace(**flags)
-    assert replays(key, torch.device(device), time_parallel, count, dyn) is replayed
+    step = _build_step(key, torch.device("cpu"))
+    assert (step.steady is None) == (mode in ("color", "none") or gray and mode == "phase")
+    if step.steady is not None:
+        assert step.steady(count, dyn) is (count > 0 and not flags)
+    assert replays(step, torch.device(device), time_parallel, count, dyn) is replayed
     if device == "cpu":
         clip = _clip()[:3]
         proc = ClipProcessor(cfg, H, W, 3, device="cpu")
@@ -316,15 +325,13 @@ def _issued(step, state, frame, dyn):
 @pytest.mark.parametrize("mode,altered", [("phase", False), ("laplace", False), ("phase", True)],
                          ids=["phase", "laplace", "phase-count-branch"])
 def test_a_replayed_step_branches_only_on_what_replays_reads(mode, altered, monkeypatch):
-    """The clip export's CUDA graph (``export/batch.py::_StepGraph``) replays
-    the ops of the frame it captured, whatever the host inputs of a later
-    frame. So every steady frame that ``replays`` admits has to issue the
-    same ops, on the same shapes, sources and host arguments, whatever its
+    """A step's CUDA graph (``models/chain.py::StepGraph``) replays the ops
+    of the frame it captured, whatever the host inputs of a later frame. So
+    every frame that the step's ``steady`` rule admits has to issue the same
+    ops, on the same shapes, sources and host arguments, whatever its
     ``count``, and a flag of ``dyn`` that changes them has to be one that
-    ``replays`` reads. The first frame's branch is seen; a step with a host
+    the rule reads. The first frame's branch is seen; a step with a host
     branch on ``count`` past the first frame (``altered``) is caught."""
-    from live_video_magnification_tpu_torch.models.chain import _build_step
-
     if altered:
         step = triesz.step
 
@@ -342,18 +349,117 @@ def test_a_replayed_step_branches_only_on_what_replays_reads(mode, altered, monk
     chain_step = _build_step(key, torch.device("cpu"))
     frames = [torch.from_numpy(np.ascontiguousarray(f.transpose(2, 0, 1))) for f in _clip()[:2]]
     state = chain_step.raw_fn(chain_step.init_state(), frames[0], dyn)[0]
-    cuda = torch.device("cuda")
+    admits = chain_step.steady
     issued = lambda count, d=dyn: _issued(chain_step.raw_fn, state._replace(count=count),
                                           frames[1], d)
     steady = issued(1)
-    assert issued(0) != steady and not replays(key, cuda, False, 0, dyn)
+    assert issued(0) != steady and not admits(0, dyn)
     varied = [c for c in (2, 3, 63, 64, 2**31) if issued(c) != steady]
-    assert all(replays(key, cuda, False, c, dyn) for c in (1, 2, 3, 63, 64, 2**31))
+    assert all(admits(c, dyn) for c in (1, 2, 3, 63, 64, 2**31))
     assert varied == ([3, 63, 64, 2**31] if altered else [])
     flags = {f for f, v in dyn._asdict().items()
              if isinstance(v, bool) and issued(1, dyn._replace(**{f: not v})) != steady}
     assert flags == ({"reset_filters", "force_init"} if mode == "phase" else set())
-    assert not any(replays(key, cuda, False, 1, dyn._replace(**{f: True})) for f in flags)
+    assert not any(admits(1, dyn._replace(**{f: True})) for f in flags)
+
+
+# The kernel flags' variables, named here apart from the table they test.
+FLAG_VARS = {"phase_fused": "LVMT_PHASE_FUSED", "tail": "LVMT_TAIL", "build": "LVMT_BUILD",
+             "mxu_dtype": "LVMT_MXU_DTYPE", "pyr_io": "LVMT_PYR_IO", "tail_io": "LVMT_TAIL_IO"}
+
+
+def _mode_key_cfg(mode):
+    ui = tparams.defaults_for(tparams.MagnificationMode(mode))
+    ui.levels = 3
+    return tparams.ProcessorConfig(magnification=tparams.to_params(ui))
+
+
+@pytest.fixture
+def no_flags(monkeypatch):
+    for var in FLAG_VARS.values():
+        monkeypatch.delenv(var, raising=False)
+    return monkeypatch
+
+
+@pytest.mark.parametrize("mode,env,digest", [
+    ("phase", {}, "45f8a5daa28768e6"),
+    ("phase", "fast", "d8a107b43c6abc30"),
+    ("phase", {"LVMT_TAIL": "level", "LVMT_PHASE_FUSED": "1"}, "0199bd9d380cd67a"),
+    ("laplace", {}, "3edb44ce3eeb9e69"),
+    ("laplace", "fast", "99d46961bcdc56c9"),
+    ("laplace", {"LVMT_TAIL": "level", "LVMT_PHASE_FUSED": "1"}, "e0c2b2fef1214789"),
+], ids=["phase-defaults", "phase-fast", "phase-level-fused", "laplace-defaults",
+        "laplace-fast", "laplace-level-fused"])
+def test_the_checkpoint_digest_is_the_one_written_checkpoints_hold(no_flags, mode, env, digest):
+    """``ClipProcessor._config_digest`` at literal values that the port
+    computed before its kernel flags had one table (at 64x96, levels 3,
+    each mode's UI defaults): under the default flags, ``magnify --fast``'s
+    and the level tail with the fused phase kernel. A checkpoint written
+    then still loads."""
+    from live_video_magnification_tpu_torch.cli import FAST_FLAGS
+
+    for var, value in (FAST_FLAGS if env == "fast" else env).items():
+        no_flags.setenv(var, value)
+    assert ClipProcessor(_mode_key_cfg(mode), H, W, 3, device="cpu")._config_digest() == digest
+
+
+@pytest.mark.parametrize("field,value", [("phase_fused", True), ("tail", "level"),
+                                         ("build", "fused"), ("mxu_dtype", "hybrid"),
+                                         ("pyr_io", "bf16"), ("tail_io", "bf16")])
+def test_each_flag_variable_sets_its_field(no_flags, field, value):
+    """Each variable sets its own field of ``env_flags`` and of the chain's
+    static key, and no other; the phase-fused flag is on at "1" only."""
+    no_flags.setenv(FLAG_VARS[field], "1" if value is True else value)
+    want = triesz.KernelFlags()._replace(**{field: value})
+    assert triesz.env_flags() == want
+    key = TChain(device="cpu").static_key(_mode_key_cfg("phase"), H, W, 3)
+    assert {f: getattr(key, f) for f in want._fields} == want._asdict()
+    if value is True:
+        no_flags.setenv(FLAG_VARS[field], "true")
+        assert triesz.env_flags() == triesz.KernelFlags()
+
+
+def test_the_step_and_the_static_key_default_to_the_flag_table(no_flags):
+    """The table's defaults are the static key's and ``step``'s, which keeps
+    no default of its own: a step given no flag is the step given the
+    table's, bit for bit."""
+    table = triesz.KernelFlags()
+    assert {f: _StaticKey._field_defaults[f] for f in table._fields} == table._asdict()
+    assert triesz.env_flags() == triesz.resolve_flags() == table
+    for fn in (triesz.step, triesz.process_clip):
+        assert not set(table._fields) & set(inspect.signature(fn).parameters)
+    clip = torch.from_numpy(np.ascontiguousarray(_clip()[:3].transpose(0, 3, 1, 2)))
+    dyn = riesz_dyn_from_jax(_jax_dyn())
+    _, given = triesz.process_clip(clip, dyn, levels=3, device="cpu", **table._asdict())
+    _, default = triesz.process_clip(clip, dyn, levels=3, device="cpu")
+    torch.testing.assert_close(default, given, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("field,message", [
+    ("tail", "unknown tail 'x': expected one of jnp, pallas, mxu, level"),
+    ("build", "unknown build 'x': expected one of auto, fused"),
+    ("mxu_dtype", "unknown mxu_dtype 'x': expected one of f32, bf16, hybrid, hybrid-band"),
+    ("pyr_io", "unknown dtype 'x': expected one of f32, bf16"),
+    ("tail_io", "unknown dtype 'x': expected one of f32, bf16"),
+])
+def test_an_unknown_flag_value_raises_as_before(no_flags, field, message):
+    """An unknown value raises with the message it always had, from the
+    environment and from ``step``'s keywords; the sharded step reads only
+    its tail, and another flag's bad value does not stop it."""
+    from live_video_magnification_tpu_torch.parallel.riesz_sharded import _Ops
+
+    frame = torch.from_numpy(np.ascontiguousarray(_clip()[0].transpose(2, 0, 1)))
+    with pytest.raises(ValueError, match=f"^{message}$"):
+        triesz.step(triesz.init_state(H, W, 3, device="cpu"), frame,
+                    riesz_dyn_from_jax(_jax_dyn()), levels=3, **{field: "x"})
+    no_flags.setenv(FLAG_VARS[field], "x")
+    with pytest.raises(ValueError, match=f"^{message}$"):
+        triesz.env_flags()
+    if field == "tail":
+        with pytest.raises(ValueError, match=f"^{message}$"):
+            _Ops()
+    else:
+        assert _Ops().tail == "jnp"
 
 
 def test_dynamic_params_match_the_reference_chain():

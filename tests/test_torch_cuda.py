@@ -748,8 +748,8 @@ def test_time_parallel_on_the_card_matches_sequential_and_the_cpu(cuda, mode, le
 @pytest.mark.parametrize("time_parallel", [False, True], ids=["sequential", "time_parallel"])
 def test_pinned_readback_equals_a_plain_readback(cuda, mode, levels, time_parallel, tmp_path):
     """ClipProcessor on the card reads its panes back on its copy stream into
-    pinned host tensors: bit for bit what ``.cpu()`` of the same outputs
-    gives (a processor without the copy stream) over a full chunk, a chunk
+    pinned host tensors: bit for bit what plain copies of the same outputs
+    give (a processor without the copy stream) over a full chunk, a chunk
     resumed from a checkpoint and a partial one; every array pinned and new,
     the first chunk's unchanged after the later ones."""
     from live_video_magnification_tpu_torch.export.batch import ClipProcessor
@@ -759,7 +759,7 @@ def test_pinned_readback_equals_a_plain_readback(cuda, mode, levels, time_parall
     cfg = _mode_cfg(mode, levels, 30.0)
     tchw = np.ascontiguousarray(moving_clip(11, h, w, seed=11).transpose(0, 3, 1, 2))
     plain = ClipProcessor(cfg, h, w, 3, time_parallel=time_parallel, device=cuda)
-    plain._copies = None  # the stacks' .cpu(), as on the CPU
+    plain._copies = None  # plain copies into pageable tensors, as on the CPU
     pinned = ClipProcessor(cfg, h, w, 3, time_parallel=time_parallel, device=cuda)
     assert pinned._copies is not None
     got = []
@@ -870,6 +870,7 @@ def test_the_step_graph_equals_the_eager_step_bit_for_bit(cuda, mode, h, w, leve
 
     from live_video_magnification_tpu_torch.engine import profiling
     from live_video_magnification_tpu_torch.export import batch
+    from live_video_magnification_tpu_torch.models.chain import StepGraph
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
     from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
 
@@ -903,7 +904,7 @@ def test_the_step_graph_equals_the_eager_step_bit_for_bit(cuda, mode, h, w, leve
     finally:
         profiling.disable()
     torch.cuda.synchronize(cuda)
-    assert isinstance(graphed._graph, batch._StepGraph)
+    assert isinstance(graphed._graph, StepGraph)
     if fast:
         assert graphed.state.old[0].lowpass.dtype == torch.bfloat16
     for (panes, _, _), (ref, _, _) in zip(got, want):
