@@ -15,7 +15,11 @@ checkout (making the 4K slice's frames on the host meanwhile), then:
      edge of their tiles and with random taps; band5 bit for bit at every
      edge of its tiles (stencils.band5_shapes()), and all eight of its
      instantiations so (``band5_exact``: aligned and one element off, with
-     zeros, -0 and subnormal pixels, the main bank and two others); times
+     zeros, -0 and subnormal pixels, the main bank and two others); the
+     plain tail's 13x13 amplitude blur (blur13) bit for bit at every shape
+     of stencils.blur13_shapes() (``blur13_exact``: aligned and one element
+     off, with zeros, -0, subnormals, NaN and infinities, and on batches of
+     planes); times
      by CUDA events over back-to-back calls, the wrapper's host cost
      included (``ms``: kernel, plain version, one PyTorch library call
      where one computes the same function), and the
@@ -205,11 +209,13 @@ REPLACES = {
     "band5": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:482",
     "lp9_decimate": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:656",
     "lp9_inject": "live_video_magnification_tpu/ops/pallas/conv9_mxu.py:376",
+    "blur13": "none: live_video_magnification_tpu/ops/riesz.py::amplitude_blur is jnp",
 }
 SOURCE = "live_video_magnification_tpu_torch/ops/hopper/csrc/stencils.cu"
-PER_FRAME = {"conv9": 10, "band5": 5, "lp9_decimate": 5, "lp9_inject": 5}  # levels=6
+# levels=6; blur13: the plain tail's three blurs a band level
+PER_FRAME = {"conv9": 10, "band5": 5, "lp9_decimate": 5, "lp9_inject": 5, "blur13": 15}
 STENCIL_KERNELS = ("stencil9_kernel", "band5_kernel", "inject9_kernel",
-                   "build_level_kernel")  # in the CUDA source
+                   "build_level_kernel", "blur13_kernel")  # in the CUDA source
 BUILD_REPLACES = "live_video_magnification_tpu/ops/pallas/riesz_build.py:125"
 # The bf16 operand arms (the reference's _mxu_dot bf16 branch,
 # conv9_mxu.py:89-101, in each of these kernels)
@@ -258,20 +264,21 @@ TAIL_BARS = {"riesz_phase_df2_fused": {"out": (1e-5, 1e-5)},
 # 4K; fused runs K5 on all five and K1 only in the collapse. The fast
 # pairing takes the bf16 arms wherever the reference's MXU kernels run:
 # every build level, the collapse steps onto levels 0-3 (135x240 is odd), K6
-# on all five levels.
+# on all five levels. A tail kernel blurs in place of blur13 (phase_fused's
+# plain branch blurs with blur13 too).
 CONFIGS = {
     "jnp": ({}, {}),
-    "pallas": ({"LVMT_TAIL": "pallas"}, {"riesz_amplify_fused": 5}),
-    "mxu": ({"LVMT_TAIL": "mxu"}, {"riesz_amplify_mxu": 5}),
-    "level": ({"LVMT_TAIL": "level"}, {"riesz_level_mxu": 5}),
+    "pallas": ({"LVMT_TAIL": "pallas"}, {"riesz_amplify_fused": 5, "blur13": 0}),
+    "mxu": ({"LVMT_TAIL": "mxu"}, {"riesz_amplify_mxu": 5, "blur13": 0}),
+    "level": ({"LVMT_TAIL": "level"}, {"riesz_level_mxu": 5, "blur13": 0}),
     "phase_fused": ({"LVMT_PHASE_FUSED": "1"}, {"riesz_phase_df2_fused": 5}),
     "phase_fused+pallas": ({"LVMT_PHASE_FUSED": "1", "LVMT_TAIL": "pallas"},
-                           {"riesz_phase_df2_fused": 5, "riesz_amplify_fused": 5}),
+                           {"riesz_phase_df2_fused": 5, "riesz_amplify_fused": 5, "blur13": 0}),
     "fused": ({"LVMT_BUILD": "fused"},
               {"conv9": 5, "band5": 0, "lp9_decimate": 0, "riesz_build_level": 5}),
     "fast": (FAST_ENV, {"conv9": 1, "band5": 0, "lp9_decimate": 0, "lp9_inject": 1,
                         "conv9[bf16]": 9, "band5[bf16]": 5, "lp9_decimate[bf16]": 5,
-                        "lp9_inject[bf16]": 4, "riesz_amplify_mxu[bf16]": 5}),
+                        "lp9_inject[bf16]": 4, "riesz_amplify_mxu[bf16]": 5, "blur13": 0}),
 }
 # the configuration whose run supplies each tail kernel's launch count
 TAIL_MAIN_PATH = {"riesz_phase_df2_fused": "phase_fused", "riesz_amplify_fused": "pallas",
@@ -405,12 +412,14 @@ def kernel_phase(dev, st, sizes):
                        for s, o in inject_pairs]
         + [(lambda x, o=o: st.lp9_inject(x, kr, o), lambda x, o=o: st.lp9_inject_plain(x, kr, o), s)
            for s, o in any_inject],
+        "blur13": [(st.blur13, st.blur13_plain, s) for s in st.blur13_shapes()],
     }
     # The kernels keep every product and sum apart in the plain version's
     # order, so they should agree exactly; the stated tolerance leaves room
-    # for nothing but a last-bit difference. band5 is also held bit for bit.
+    # for nothing but a last-bit difference. band5 and blur13 are also held
+    # bit for bit.
     tol_rel = 1e-6
-    bit_equal = {"band5"}
+    bit_equal = {"band5", "blur13"}
     errs = {}
     for name, runs in cases.items():
         worst = 0.0
@@ -472,6 +481,51 @@ def misaligned(x):
     return view
 
 
+def same_bits_nan(got, ref) -> bool:
+    """same_bits where ref is not NaN, and NaN where ref is NaN."""
+    import torch
+
+    nan = torch.isnan(ref)
+    return (got.shape == ref.shape and got.dtype == ref.dtype
+            and torch.equal(torch.isnan(got), nan)
+            and torch.equal(got.view(torch.int32)[~nan], ref.view(torch.int32)[~nan]))
+
+
+def blur13_exact(dev, st):
+    """blur13 against its plain version bit for bit (NaN where it has NaN) at
+    every shape of st.blur13_shapes(), the plane aligned and one element off,
+    with zeros, -0, tiny and subnormal values, NaN and infinities; and on
+    [T, H, W] and [B, T, H, W] batches, aligned and one element off."""
+    import torch
+
+    rng = np.random.default_rng(SEED + 14)
+    plane = lambda *shape: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                            * 30.0).to(dev)
+    cases = []
+    for shape in st.blur13_shapes():
+        x = zeros_and_tiny(plane(*shape))
+        h, w = shape
+        x[(2 * h) // 3, (2 * w) // 3] = float("nan")
+        if h * w > 4:
+            x[h - 1, w - 1] = float("inf")
+            x[h // 2, 0] = float("-inf")
+        cases.append(x)
+    cases += [plane(5, 135, 241), plane(3, 2, 70, 64), plane(32, 270, 480), plane(2, 7, 13)]
+    calls = 0
+    for x in cases:
+        for offset in (0, 1):
+            xi = misaligned(x) if offset else x
+            got, ref = st.blur13(xi), st.blur13_plain(xi)
+            torch.cuda.synchronize()
+            if not same_bits_nan(got, ref):
+                raise AssertionError(f"blur13 at {tuple(x.shape)} (offset {offset}): not "
+                                     "bit-equal to its plain version")
+            calls += 1
+    log(phase="blur13_exact", shapes=[list(x.shape) for x in cases], offsets=[0, 1],
+        calls=calls, max_abs_err=0.0,
+        tolerance="bit for bit, the sign of a zero included; NaN where the plain version has NaN")
+
+
 def band5_exact(dev, st):
     """All eight band5 instantiations (f32 or bf16 input, f32 or bf16
     outputs, f32 or bf16 operands) against the plain version bit for bit,
@@ -519,6 +573,7 @@ def time_phase(dev, st, sizes):
     """ms of kernel, plain version and library call at each level shape."""
     import torch
     from live_video_magnification_tpu_torch.ops.kernels import (
+        AMPLITUDE_BLUR_KERNEL_1D,
         RIESZ_BAND_KERNEL,
         RIESZ_HIGHPASS_9x9,
     )
@@ -538,11 +593,14 @@ def time_phase(dev, st, sizes):
     band_w = np.zeros((2, 1, 5, 5), np.float32)
     band_w[0, 0, 2, :] = RIESZ_BAND_KERNEL
     band_w[1, 0, :, 2] = RIESZ_BAND_KERNEL
+    g13 = np.asarray(AMPLITUDE_BLUR_KERNEL_1D, np.float32)
     lib = {
         "conv9": conv_module(RIESZ_HIGHPASS_9x9),
         "band5": conv_module(band_w, out=2),
         "lp9_decimate": conv_module(LOWPASS_2X, stride=2),
         "lp9_inject": None,  # no PyTorch call has reflect-101 on the injected array
+        # the 13x13 outer product of the taps, one reflect-padded convolution
+        "blur13": conv_module(np.outer(g13, g13)),
     }
     nnz = lambda k: int(np.count_nonzero(k))
     rows = []
@@ -567,9 +625,12 @@ def time_phase(dev, st, sizes):
             "lp9_inject": (lambda: st.lp9_inject(small, LOWPASS_2X, (h, w)),
                            lambda: st.lp9_inject_plain(small, LOWPASS_2X, (h, w)), None,
                            (shw + hw) * f4, 2 * 81 * hw // 4),
+            # two passes of 13 products and 12 sums an output
+            "blur13": (lambda: st.blur13(x), lambda: st.blur13_plain(x), x,
+                       2 * hw * f4, 2 * 25 * hw),
         }
         floors = {"conv9": 2 * nnz(RIESZ_HIGHPASS_9x9) * hw, "lp9_decimate": 2 * 81 * oh * ow,
-                  "lp9_inject": 2 * 81 * hw // 4}
+                  "lp9_inject": 2 * 81 * hw // 4, "blur13": 2 * 25 * hw}
         iters = 50 if lvl == 0 else 200
         for name, (kernel, plain, lib_in, nbytes, ops) in specs.items():
             ms = cuda_ms(kernel, iters)
@@ -922,7 +983,7 @@ def slice_4k(torch, dev, st, tl, frames):
         by_kernel = {"stencil9_kernel": launches["conv9"] + launches["lp9_decimate"],
                      "band5_kernel": launches["band5"], "inject9_kernel": launches["lp9_inject"],
                      "build_level_kernel": launches["riesz_build_level"],
-                     **{k: 0 for k in TAIL_KERNELS}}
+                     "blur13_kernel": launches["blur13"], **{k: 0 for k in TAIL_KERNELS}}
         launches = {k: launches[k] for k in PER_FRAME}
         if not np.array_equal(chain_out[0], frames[0]):
             raise AssertionError("4K frame 0 is not the passthrough of the input")
@@ -1043,9 +1104,11 @@ def slice_4k_tails(torch, dev, st, tl, frames, jnp_out):
 
 def bench_expected(call, steps, *modules):
     """Every launch count of the modules for one bench loop ``call`` (mode,
-    h, w, levels, flags): four runs of ``steps`` frames; the fast flags at
-    4K as the 4K slice's fast run, else the default path's stencils
-    (``tp_expected``: phase's f32 stencils, motion and colour none)."""
+    h, w, levels, flags, parallel): four runs of ``steps`` frames; the fast
+    flags at 4K as the 4K slice's fast run, else the default path's stencils
+    (``tp_expected``: phase's f32 stencils a frame and blur13 a frame, or a
+    run of the time-parallel loop, which blurs its frames as one batch;
+    motion and colour none)."""
     frames = 4 * steps
     if call["flags"] == {**FLAG_DEFAULTS, **FAST_ENV}:
         if (call["h"], call["w"], call["levels"]) != (2160, 3840, 6):
@@ -1053,7 +1116,8 @@ def bench_expected(call, steps, *modules):
         return expected_counts(frames, CONFIGS["fast"][1], *modules)
     if call["flags"] != FLAG_DEFAULTS:
         raise AssertionError(f"port bench: a loop ran under {call['flags']}")
-    return tp_expected(call["mode"], frames, call["h"], call["w"], call["levels"], *modules)
+    return tp_expected(call["mode"], frames, call["h"], call["w"], call["levels"], *modules,
+                       batches=4 if call["parallel"] else frames)
 
 
 def port_bench(torch, dev, st, tl, hl, jnp_ms, steps=BENCH_STEPS):
@@ -1153,7 +1217,8 @@ def port_bench(torch, dev, st, tl, hl, jnp_ms, steps=BENCH_STEPS):
             mode, h, w, levels = call["args"][:4]
             n = call["kwargs"]["t_chunk"] if call["kind"] == "bench_time_parallel" else call["args"][4]
             frames = 4 * n
-            want = bench_expected(dict(mode=mode, h=h, w=w, levels=levels, flags=call["flags"]),
+            want = bench_expected(dict(mode=mode, h=h, w=w, levels=levels, flags=call["flags"],
+                                       parallel=call["kind"] == "bench_time_parallel"),
                                   n, *modules)
             if launches != want:
                 raise AssertionError(f"port bench {call['kind']} {call['args']} under "
@@ -1436,14 +1501,18 @@ def tp_cfg(mode, fps=None):
     return cfg_4k(6) if mode == "phase" else mode_cfg(mode, fps=fps)
 
 
-def tp_expected(mode, frames, h, w, levels, *modules):
+def tp_expected(mode, frames, h, w, levels, *modules, batches=1):
     """Every launch count of the modules for ``frames`` frames of ``mode``'s
-    time-parallel path: phase's f32 stencils, nothing else."""
+    time-parallel path: phase's f32 stencils a frame and its blur13 a batch
+    of frames (``batches``: the chunks times the shards; a sequential loop's
+    frames), nothing else."""
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
 
     want = {k: 0 for k in launch_counts(*modules)}
     if mode == "phase":
         want.update({k: v * frames for k, v in stencil_launches(h, w, levels).items()})
+        want["blur13"] = blur_launches(h, w, levels) * batches
     return want
 
 
@@ -1556,7 +1625,7 @@ def slice_4k_time_parallel(torch, dev, st, tl, hl, frames):
                 for path, parallel in (("time_parallel", True), ("sequential", False)):
                     proc = ClipProcessor(cfg, h, w, 3, time_parallel=parallel, device=dev)
                     out, sec, launched, peak = run_clip(torch, dev, proc, [tchw], modules)
-                    want = tp_expected(mode, t, h, w, proc.key.levels, *modules)
+                    want = tp_expected(mode, t, h, w, proc.key.levels, *modules)  # one chunk
                     if parallel and launched != want:
                         raise AssertionError(f"4K time-parallel {name}: launches {launched} "
                                              f"!= expected {want}")
@@ -1613,7 +1682,7 @@ def slice_card_vs_cpu_time_parallel(torch, dev, st, tl, hl, h=1080, w=1920):
             a, _, launched, _ = run_clip(torch, dev, gpu, chunks, modules)
             cpu = ClipProcessor(cfg, h, w, 3, time_parallel=True, device="cpu")
             b = np.concatenate([cpu.process_chunk(c)[0] for c in chunks])
-        want = tp_expected(mode, t, h, w, gpu.key.levels, *modules)
+        want = tp_expected(mode, t, h, w, gpu.key.levels, *modules, batches=len(chunks))
         if launched != want:
             raise AssertionError(f"1080p time-parallel {name}: launches {launched} != {want}")
         dbs, lsbs = frame_stats(a, b)
@@ -1771,7 +1840,7 @@ def slice_4k_time_mesh(torch, dev, st, tl, hl, frames):
                 ref, sec, _, peak = run_clip(torch, dev, proc, [full], modules)
                 row["unsharded"] = dict(ms_per_frame=1e3 * sec / t, peak_memory_bytes=peak)
                 row["levels"] = proc.key.levels
-                want = tp_expected(mode, t, h, w, proc.key.levels, *modules)
+                want = tp_expected(mode, t, h, w, proc.key.levels, *modules, batches=TM_SHARDS)
                 chunks = [full, tail] if n_pass == 1 else [full]
                 outs, secs, launched, peak, exp = run_time_mesh(torch, devices, cfg, chunks,
                                                                 modules)
@@ -1830,7 +1899,8 @@ def slice_time_mesh_multi_gpu(torch, st, tl, hl, frames, virtual):
         with flag_env({}):
             outs, secs, launched, peak, exp = run_time_mesh(torch, devices, cfg, [tchw],
                                                             modules)
-        want = tp_expected(mode, t, h, w, exp.proc.key.levels, *modules)
+        want = tp_expected(mode, t, h, w, exp.proc.key.levels, *modules,
+                           batches=len(devices))
         if launched != want:
             raise AssertionError(f"time mesh on {len(devices)} cards {name}: launches "
                                  f"{launched} != {want}")
@@ -2728,12 +2798,15 @@ def consumer_copies_ms(torch, dev, h, w, oh, ow, reps=5):
 
 
 def live_expected(st, tl, hl, h, w, levels, processed):
-    """Exactly the f32 stencils of ``stencil_launches`` a processed frame;
-    every other count (bf16 arms, tail, halo) 0."""
+    """Exactly the f32 stencils of ``stencil_launches`` and the blur13 of
+    ``blur_launches`` a processed frame; every other count (bf16 arms, tail,
+    halo) 0."""
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
 
     want = {k: 0 for k in launch_counts(st, tl, hl)}
     want.update({k: v * processed for k, v in stencil_launches(h, w, levels).items()})
+    want["blur13"] = blur_launches(h, w, levels) * processed
     return want
 
 
@@ -3161,7 +3234,8 @@ def gui_record_flow(torch, dev, h, w, fps=30.0, seconds=GUI_RECORD_S, levels=6, 
     polled by ``export_poll_transition`` to "finish". Every written frame
     must equal bit for bit a fresh chain's frames under the export's config
     composed by ``compose``; with ``modules``, the export's launches must be
-    exactly ``stencil_launches`` a frame. Returns the numbers."""
+    exactly ``stencil_launches`` and ``blur_launches`` a frame. Returns the
+    numbers."""
     import live_video_magnification_tpu_torch.export.exporter as exporter
     from live_video_magnification_tpu_torch.engine.controller import PlaybackController
     from live_video_magnification_tpu_torch.engine.processing import hwc_result
@@ -3182,6 +3256,7 @@ def gui_record_flow(torch, dev, h, w, fps=30.0, seconds=GUI_RECORD_S, levels=6, 
     )
     from live_video_magnification_tpu_torch.models.chain import MagnificationChain
     from live_video_magnification_tpu_torch.models.params import MagnificationMode, to_ui
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
 
     poll_s = ExportProgressDialog.POLL_MS / 1e3
@@ -3261,6 +3336,7 @@ def gui_record_flow(torch, dev, h, w, fps=30.0, seconds=GUI_RECORD_S, levels=6, 
     if modules:
         want = {k: 0 for k in launched}
         want.update({k: v * len(frames) for k, v in stencil_launches(h, w, levels_run).items()})
+        want["blur13"] = blur_launches(h, w, levels_run) * len(frames)
         if launched != want:
             raise AssertionError(f"gui_flow: launches {launched}, expected {want}")
     return dict(shape=[h, w], levels=levels_run, record_seconds=seconds, record_polls=polls,
@@ -3409,6 +3485,7 @@ def main() -> int:
     sizes = riesz_level_sizes(2160, 3840, 6)
     errs = kernel_phase(dev, st, sizes)
     band5_exact(dev, st)
+    blur13_exact(dev, st)
     times = time_phase(dev, st, sizes)
     tail_errs = tail_kernel_check(dev, tl, sizes)
     tail_times = tail_kernel_time(dev, tl, sizes)

@@ -188,6 +188,20 @@ def _flat(rp: RegPair) -> Tuple[torch.Tensor, ...]:
     return (rp.reg0.cos, rp.reg0.sin, rp.reg1.cos, rp.reg1.sin)
 
 
+def blur_launches(h: int, w: int, levels: int, tail: str = "jnp",
+                  phase_fused: bool = False) -> int:
+    """blur13 launches (ops/hopper/stencils.py) of one ``step`` at (h, w):
+    three a band level whose plain tail blurs (the amplitude and
+    normalize_phase's two; phase_fused's plain branch the same three), none
+    where a tail kernel blurs: a level of both sides >= kernel_tails.MIN_SIDE
+    under pallas, mxu or level, or under phase_fused with pallas. Also one
+    ``process_clip_parallel`` chunk's, which blurs its frames as one batch."""
+    kernel_blurs = ("pallas",) if phase_fused else ("pallas", "mxu", "level")
+    resolve_tail(tail)
+    return sum(0 if min(s) >= kernel_tails.MIN_SIDE and tail in kernel_blurs else 3
+               for s in riesz_level_sizes(h, w, levels)[:-1])
+
+
 def step(state: RieszState, frame_u8: torch.Tensor, dyn: RieszDynParams, *,
          levels: int, **flags) -> Tuple[RieszState, torch.Tensor]:
     """One frame: [3, H, W] uint8 BGR in, (new state, [3, H, W] uint8) out.

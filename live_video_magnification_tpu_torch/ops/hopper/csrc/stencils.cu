@@ -23,6 +23,28 @@
 //                        pair from it, and (x (*) 2LP9) at the kept even
 //                        sites: one read of the octave for what conv9, band5
 //                        and lp9_decimate read three times
+//   lvmt_blur13       <- no TPU kernel: the plain tail's GaussianBlur(13x13,
+//                        sigma=3) of the amplitudes (ops/riesz.py::
+//                        amplitude_blur), which the reference package leaves
+//                        to jnp and XLA fuses. In plain PyTorch it was 62
+//                        launches and ~4.3 GB of elementwise traffic a 4K
+//                        level-0 blur (reflect pads, 13 shifted products and
+//                        12 sums an axis), 15 blurs a 4K frame. blur13_kernel
+//                        stages a haloed tile as amplify13_kernel does
+//                        (tail.cu), keeps both passes in shared memory and
+//                        reads and writes each plane once: 66 MB at
+//                        2160x3840, a bound of 0.0198 ms (bytes); its ~60
+//                        rounded operations an output (the W-axis pass on
+//                        the halo rows too) take ~0.015 ms at one a lane a
+//                        cycle. It reads 0.0367 ms there by CUDA graph on an
+//                        H100 SXM at 700 W, half its bound: the staging, the
+//                        two passes and the store of a tile take turns, and
+//                        a 64-row tile (1.19 staged rows an output row) with
+//                        four blocks an SM was the fastest of the tiles and
+//                        register caps tried; under 1,056 such tiles the
+//                        32-row tile, whose shorter chain a block waits on
+//                        less. [..., H, W] planes, any sides (reflect-101
+//                        periodic under 7 px, as the plain version).
 //
 // The bf16 operand arm (the reference's LVMT_MXU_DTYPE=bf16: dot of bf16
 // operands, f32 accumulation) is a template flag ROUND (in stencil9_kernel
@@ -1083,6 +1105,213 @@ build_level_kernel(const float* __restrict__ x, TOut* __restrict__ hp_out,
   }
 }
 
+// ---------------------------------------------------------------- blur13
+
+struct Taps13 {
+  float k[13];
+};
+
+// Reflect-101 for any p: periodic with period 2(n-1), as the plain version's
+// index rule (ops/conv.py::reflect_index), so sides under the blur's 6-px
+// reach agree with it.
+__device__ __forceinline__ int reflect101_any(int p, int n) {
+  if (p >= 0 && p < n) return p;
+  if (n == 1) return 0;
+  const int period = 2 * (n - 1);
+  p %= period;
+  p = p < 0 ? p + period : p;
+  return p >= n ? period - p : p;
+}
+
+// Block tile of blur13_kernel: TH x BLUR_TW outputs (TH is BLUR_TALL_TH or
+// BLUR_SMALL_TH, picked on the host), BLUR_NT threads, BLUR_MIN_BLOCKS
+// resident an SM (a register cap: the kernel waits on its loads, and more
+// blocks hide them). The staged tile holds TH + 12 rows (the 6-row halo
+// above and below) of BLUR_SC columns from x0 - BLUR_LEAD, a 16-byte aligned
+// start (columns BLUR_SKIP .. BLUR_SKIP + BLUR_TW + 11 are read), rows
+// BLUR_SW floats apart: 84 = 80 + 4 puts the two rows a quarter-warp reads
+// in the W-axis pass on disjoint banks.
+constexpr int BLUR_HALO = 6;
+constexpr int BLUR_TALL_TH = 64;
+constexpr int BLUR_SMALL_TH = 32;
+constexpr int BLUR_TW = 64;
+constexpr int BLUR_NT = 256;
+constexpr int BLUR_MIN_BLOCKS = 4;
+constexpr int BLUR_RX = 8;                   // W-axis outputs of a lane (8 lanes a row)
+constexpr int BLUR_QX = BLUR_TW / 4;         // column quads of a tile row
+constexpr int BLUR_RG = BLUR_NT / BLUR_QX;   // row groups of the H-axis pass
+constexpr int BLUR_LEAD = 8;
+constexpr int BLUR_SKIP = BLUR_LEAD - BLUR_HALO;
+constexpr int BLUR_SC = BLUR_TW + 2 * BLUR_LEAD;
+constexpr int BLUR_SW = BLUR_SC + 4;
+static_assert(BLUR_TW == 8 * BLUR_RX && BLUR_NT % 32 == 0 && BLUR_NT % BLUR_QX == 0,
+              "8 lanes a row; whole warps; row groups of whole column quads");
+static_assert(BLUR_SW % 4 == 0, "16-byte rows");
+
+// The rows of a tile TH outputs tall: staged (SH), and summed down a column
+// quad by one thread in the H-axis pass (RY).
+template <int TH>
+struct BlurRows {
+  static constexpr int SH = TH + 2 * BLUR_HALO;
+  static constexpr int RY = TH / BLUR_RG;
+  static_assert(TH % BLUR_RG == 0 && SH % 4 == 0, "whole row groups; whole warp steps");
+};
+
+// Launch flags of blur13_kernel.
+constexpr int BLUR_VEC_IN = 1;   // input rows 16-byte aligned: staged in 16-byte chunks
+constexpr int BLUR_VEC_OUT = 2;  // output rows aligned for 4-wide stores
+
+// Stages the SH rows of the tile at (y0, x0) of plane x, reflect-101 by
+// index. VEC: 16-byte chunks, one load each inside the image, mirrored
+// element by element outside it (the left and right borders only), rows
+// mirrored by index once a chunk; a thread issues the loads of all its
+// chunks (six at most) before it stores any. Otherwise one element at a time.
+template <int SH>
+__device__ __forceinline__ void blur_stage(float* s, const float* __restrict__ x, int y0, int x0,
+                                           int h, int w, bool vec) {
+  if (vec) {
+    constexpr int Q = BLUR_SC / 4;  // chunks of a staged row
+    constexpr int N = SH * Q;
+    constexpr int CHUNKS = (N + BLUR_NT - 1) / BLUR_NT;
+    float4 v[CHUNKS];
+    unrolled<0, CHUNKS>([&](auto uu) {
+      constexpr int U = decltype(uu)::value;
+      const int i = threadIdx.x + U * BLUR_NT;
+      if ((U + 1) * BLUR_NT <= N || i < N) {
+        const int r = i / Q;
+        const int gx = x0 - BLUR_LEAD + (i - r * Q) * 4;
+        const float* row = x + (size_t)reflect101_any(y0 - BLUR_HALO + r, h) * w;
+        if (gx >= 0 && gx + 4 <= w) {
+          v[U] = *reinterpret_cast<const float4*>(row + gx);
+        } else {
+          v[U] = make_float4(row[reflect101_any(gx, w)], row[reflect101_any(gx + 1, w)],
+                             row[reflect101_any(gx + 2, w)], row[reflect101_any(gx + 3, w)]);
+        }
+      }
+    });
+    unrolled<0, CHUNKS>([&](auto uu) {
+      constexpr int U = decltype(uu)::value;
+      const int i = threadIdx.x + U * BLUR_NT;
+      if ((U + 1) * BLUR_NT <= N || i < N) {
+        const int r = i / Q;
+        *reinterpret_cast<float4*>(s + r * BLUR_SW + (i - r * Q) * 4) = v[U];
+      }
+    });
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < SH * BLUR_SC; i += BLUR_NT) {
+      const int r = i / BLUR_SC;
+      const int k = i - r * BLUR_SC;
+      s[r * BLUR_SW + k] = x[(size_t)reflect101_any(y0 - BLUR_HALO + r, h) * w +
+                             reflect101_any(x0 - BLUR_LEAD + k, w)];
+    }
+  }
+}
+
+// W-axis pass: the 13-tap sums of every staged row, written back in place
+// (columns 0 .. BLUR_TW-1). A lane sums BLUR_RX outputs of a row from six
+// 16-byte reads; a warp takes four rows, a quarter-warp two rows of four
+// lanes, so its reads fall on disjoint banks. A warp owns its rows, so the
+// reads of a row end before its writes at a warp barrier.
+template <int SH>
+__device__ __forceinline__ void blur_rows_in_place(float* s, const Taps13& g) {
+  const int lane = threadIdx.x & 31;
+  const int q = lane >> 3;
+  const int row = 2 * (q >> 1) + ((lane >> 2) & 1);
+  const int col = BLUR_RX * ((lane & 3) + 4 * (q & 1));
+#pragma unroll 1
+  for (int r0 = (threadIdx.x >> 5) * 4; r0 < SH; r0 += (BLUR_NT / 32) * 4) {
+    float* at = s + (r0 + row) * BLUR_SW + col;
+    float v[BLUR_RX + 16];
+#pragma unroll
+    for (int c = 0; c < BLUR_RX + 16; c += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(at + c);
+      v[c] = t.x;
+      v[c + 1] = t.y;
+      v[c + 2] = t.z;
+      v[c + 3] = t.w;
+    }
+    float o[BLUR_RX];
+#pragma unroll
+    for (int i = 0; i < BLUR_RX; ++i) {
+      float acc = __fmul_rn(v[i + BLUR_SKIP], g.k[0]);
+#pragma unroll
+      for (int t = 1; t < 13; ++t) acc = madd(acc, v[i + BLUR_SKIP + t], g.k[t]);
+      o[i] = acc;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < BLUR_RX; i += 4) {
+      *reinterpret_cast<float4*>(at + i) = make_float4(o[i], o[i + 1], o[i + 2], o[i + 3]);
+    }
+  }
+}
+
+// GaussianBlur(13x13) with reflect-101 borders of each h x w plane, as
+// ops/conv.py::sep_correlate2d computes it: the W-axis pass first, its sums
+// rounded to f32, then the H-axis pass, each output of a pass starting from
+// the product of tap 0 and adding taps 1..12 in order, every product and sum
+// rounded alone. One TH x BLUR_TW tile of one plane a block: staged with its
+// halo, the W-axis pass in place, then a thread sums a column quad for RY
+// rows down the staged row sums (RY + 12 16-byte reads) and writes them
+// out. Planes from blockIdx.z in steps of gridDim.z.
+template <int TH>
+__global__ void __launch_bounds__(BLUR_NT, BLUR_MIN_BLOCKS)
+blur13_kernel(const float* __restrict__ x, float* __restrict__ out, int planes, int h, int w,
+              int flags, const __grid_constant__ Taps13 g) {
+  using R = BlurRows<TH>;
+  __shared__ __align__(16) float s[R::SH * BLUR_SW];
+  const int x0 = blockIdx.x * BLUR_TW;
+  const int y0 = blockIdx.y * TH;
+  const int cq = threadIdx.x % BLUR_QX;
+  const int rg = threadIdx.x / BLUR_QX;
+  const int ox = x0 + 4 * cq;
+  const int oy = y0 + rg * R::RY;
+  const bool vec_out = (flags & BLUR_VEC_OUT) && ox + 4 <= w;
+  for (int p = blockIdx.z; p < planes; p += gridDim.z) {
+    const size_t plane = (size_t)p * h * w;
+    blur_stage<R::SH>(s, x + plane, y0, x0, h, w, flags & BLUR_VEC_IN);
+    __syncthreads();
+    blur_rows_in_place<R::SH>(s, g);
+    __syncthreads();
+    float b[R::RY][4];
+    const float* col = s + rg * R::RY * BLUR_SW + 4 * cq;
+    unrolled<0, R::RY + 12>([&](auto tt) {
+      constexpr int T = decltype(tt)::value;
+      const float4 t4 = *reinterpret_cast<const float4*>(col + T * BLUR_SW);
+      const float v[4] = {t4.x, t4.y, t4.z, t4.w};
+      unrolled<0, R::RY>([&](auto jj) {
+        constexpr int J = decltype(jj)::value;
+        constexpr int A = T - J;  // staged row T feeds output row J as tap T - J
+        if constexpr (A >= 0 && A <= 12) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if constexpr (A == 0) {
+              b[J][i] = __fmul_rn(v[i], g.k[0]);
+            } else {
+              b[J][i] = madd(b[J][i], v[i], g.k[A]);
+            }
+          }
+        }
+      });
+    });
+#pragma unroll
+    for (int j = 0; j < R::RY; ++j) {
+      if (oy + j >= h) break;
+      float* o = out + plane + (size_t)(oy + j) * w + ox;
+      if (vec_out) {
+        *reinterpret_cast<float4*>(o) = make_float4(b[j][0], b[j][1], b[j][2], b[j][3]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (ox + i < w) o[i] = b[j][i];
+        }
+      }
+    }
+    __syncthreads();  // the next plane's staging overwrites the tile
+  }
+}
+
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 Taps81 taps81(const void* k) {
@@ -1381,6 +1610,45 @@ int build_launch(const void* x, void* hp, void* r, void* i, void* sub, int h, in
   return static_cast<int>(cudaGetLastError());
 }
 
+// At least this many tall tiles (BLUR_TALL_TH rows) make two rounds of the
+// blocks an H100 holds at once (BLUR_MIN_BLOCKS an SM); fewer take the small
+// tiles, whose shorter chain of load, passes and store a lone block waits on
+// less.
+constexpr int BLUR_TALL_MIN = 2 * BLUR_MIN_BLOCKS * 132;
+
+// The 13 taps of blur13_kernel, or false where one is zero: the plain
+// version skips zero taps, which the kernel does not.
+bool taps13(const void* k, Taps13& t) {
+  std::memcpy(t.k, k, sizeof t.k);
+  for (float v : t.k) {
+    if (v == 0.f) return false;
+  }
+  return true;
+}
+
+int blur13_launch(const void* x, void* out, int planes, int h, int w, const void* taps,
+                  cudaStream_t s) {
+  Taps13 t;
+  if (planes < 1 || h < 1 || w < 1 || !taps13(taps, t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int flags = 0;
+  if (w % 4 == 0 && aligned(x, 16)) flags |= BLUR_VEC_IN;
+  if (w % 4 == 0 && aligned(out, 16)) flags |= BLUR_VEC_OUT;
+  const dim3 block(BLUR_NT);
+  const int z = planes < 65535 ? planes : 65535;
+  const auto* in = static_cast<const float*>(x);
+  auto* o = static_cast<float*>(out);
+  if ((long long)ceil_div(w, BLUR_TW) * ceil_div(h, BLUR_TALL_TH) * planes >= BLUR_TALL_MIN) {
+    const dim3 grid(ceil_div(w, BLUR_TW), ceil_div(h, BLUR_TALL_TH), z);
+    blur13_kernel<BLUR_TALL_TH><<<grid, block, 0, s>>>(in, o, planes, h, w, flags, t);
+  } else {
+    const dim3 grid(ceil_div(w, BLUR_TW), ceil_div(h, BLUR_SMALL_TH), z);
+    blur13_kernel<BLUR_SMALL_TH><<<grid, block, 0, s>>>(in, o, planes, h, w, flags, t);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1436,6 +1704,13 @@ int lvmt_riesz_build_level(const void* x, void* hp, void* r, void* i, void* sub,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return out_bf16 ? build_launch<__nv_bfloat16>(x, hp, r, i, sub, h, w, hp9, t5, lp9, s)
                   : build_launch<float>(x, hp, r, i, sub, h, w, hp9, t5, lp9, s);
+}
+
+// x, out: planes x h x w floats, any sides of at least 1; taps: 13 non-zero
+// floats (cudaErrorInvalidValue otherwise, nothing launched).
+int lvmt_blur13(const void* x, void* out, int planes, int h, int w, const void* taps,
+                void* stream) {
+  return blur13_launch(x, out, planes, h, w, taps, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

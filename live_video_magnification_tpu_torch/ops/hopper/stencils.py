@@ -1,11 +1,11 @@
-"""The Riesz pyramid's stencils: CUDA kernels for Hopper and their plain
-PyTorch versions.
+"""The Riesz pyramid's stencils and the plain tail's amplitude blur: CUDA
+kernels for Hopper and their plain PyTorch versions.
 
-Each public function takes [H, W] contiguous tensors. On a CUDA tensor it
-launches its kernel from ``csrc/stencils.cu`` on the current stream (or
-raises); on a CPU tensor it runs the plain version beside it, the composition
-of ``ops/conv.py`` functions that the kernel must equal. There is no switch
-and no fallback.
+Each public function takes [H, W] contiguous tensors (blur13 [..., H, W]).
+On a CUDA tensor it launches its kernel from ``csrc/stencils.cu`` on the
+current stream (or raises); on a CPU tensor it runs the plain version beside
+it, the composition of ``ops/conv.py`` functions that the kernel must equal.
+There is no switch and no fallback.
 
 ==================  ==================================================  =========
 function            replaces (reference package)                        bound
@@ -15,6 +15,7 @@ band5               ops/pallas/conv9_mxu.py::band5_mxu                  bytes
 lp9_decimate        ops/pallas/conv9_mxu.py::lp9_decimate_mxu           bytes
 lp9_inject          ops/pallas/conv9_mxu.py::lp9_inject_mxu             bytes
 riesz_build_level   ops/pallas/riesz_build.py::riesz_build_level_fused  bytes
+blur13              no TPU kernel (ops/riesz.py::amplitude_blur, jnp)   bytes
 ==================  ==================================================  =========
 
 The four MXU stencils take the reference's ``bf16`` operand arm: with
@@ -49,6 +50,13 @@ TPU kernels, these take any side of at least 5 (reflect-101 with a 4-px
 reach), odd sides included; riesz_build_level takes sides of at least 16, the
 reference's MIN_FUSED_DIM.
 
+blur13 is the plain tail's GaussianBlur(13x13, sigma=3) of the amplitudes,
+which the reference package leaves to jnp (XLA fuses it); its plain version
+is ``sep_correlate2d`` with the 13 taps, 62 launches a plane. It takes
+[..., H, W] f32 (the leading dims are planes of one launch, as the
+time-parallel path's [T, H, W]) of any sides, and equals its plain version
+bit for bit, NaN, infinities, signed zeros and subnormals included.
+
 ``LAUNCHES`` counts the kernel launches of each function with f32 operands,
 ``LAUNCHES_BF16`` those of the bf16 operand arms; a run that resets them can
 show which kernels, and which arms, its main path went through. They count
@@ -68,9 +76,11 @@ from live_video_magnification_tpu_torch.ops.conv import (
     correlate2d,
     correlate_cols,
     correlate_rows,
+    sep_correlate2d,
 )
 from live_video_magnification_tpu_torch.ops.hopper._build import launch, load_library
 from live_video_magnification_tpu_torch.ops.kernels import (
+    AMPLITUDE_BLUR_KERNEL_1D,
     LOWPASS_2X,
     RIESZ_BAND_KERNEL,
     RIESZ_HIGHPASS_9x9,
@@ -78,7 +88,7 @@ from live_video_magnification_tpu_torch.ops.kernels import (
 from live_video_magnification_tpu_torch.ops.resize import resize_nearest_even_inject
 
 LAUNCHES = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0,
-            "riesz_build_level": 0}
+            "riesz_build_level": 0, "blur13": 0}
 LAUNCHES_BF16 = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0}
 
 MIN_SIDE = 5
@@ -95,6 +105,13 @@ BUILD_TILES = {"tall": (32, 64), "small": (16, 32)}
 INJECT_TILES = {"tall": (32, 128), "small": (16, 64)}
 BAND_TILES = {"tall_f32": (64, 128), "tall": (32, 128), "small": (8, 64)}
 TALL_GRID_MIN = 2 * 132
+# blur13's output tiles (rows, columns): BLUR_TALL_TH / BLUR_SMALL_TH by
+# BLUR_TW of csrc/stencils.cu; the tall ones where a launch has at least
+# BLUR13_TALL_MIN of them (BLUR_TALL_MIN: its planes' tiles summed).
+BLUR13_TILES = {"tall": (64, 64), "small": (32, 64)}
+BLUR13_TALL_MIN = 2 * 4 * 132
+# The 13 taps of the amplitude blur as f32, as blur13's and the tail's kernels take them.
+TAPS13 = np.ascontiguousarray(np.asarray(AMPLITUDE_BLUR_KERNEL_1D, np.float32))
 
 # The zero pattern of each function's main-path bank, for which its kernel
 # has an instantiation (csrc/stencils.cu); the kernel tests any other bank's
@@ -195,6 +212,27 @@ def band5_shapes():
     return shapes + [(2160, 964), (1080, 484)]
 
 
+def blur13_shapes():
+    """Shapes that reach every edge of blur13's tiles (BLUR13_TILES): sides
+    under the blur's 6-px reach (mirrored periodically, down to 1) and just
+    over it, on either side; one small tile, one more row, one more column,
+    two and a ragged third each way; a width of every residue mod 4 (16-byte
+    rows or not); tall tiles (BLUR13_TALL_MIN or more) aligned, one row more
+    and one column more; odd shapes; every band level of 1080x1920 and of
+    2160x3840 levels 6 (the finest in tall tiles)."""
+    th, tw = BLUR13_TILES["small"]
+    narrow = [(n, 37) for n in (1, 2, 6, 7, 13, 14)] + [(29, n) for n in (1, 2, 6, 7, 13, 14)]
+    shapes = narrow + [(1, 1), (2, 5), (6, 7)]
+    shapes += [(th, tw), (th + 1, tw), (th, tw + 1), (2 * th + 1, 2 * tw + 1)]
+    shapes += [(40, 2 * tw + m) for m in range(4)]
+    tth, ttw = BLUR13_TILES["tall"]
+    assert 33 * 32 >= BLUR13_TALL_MIN
+    shapes += [(33 * tth, 32 * ttw), (33 * tth + 1, 32 * ttw), (33 * tth, 32 * ttw + 1)]
+    shapes += [(33, 257), (97, 201), (135, 241)]
+    shapes += [(1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]
+    return shapes + [(2160, 3840)]
+
+
 def round_bf16(x: torch.Tensor) -> torch.Tensor:
     """x rounded to bfloat16 (nearest even) and back to float32."""
     return x.to(torch.bfloat16).float()
@@ -247,6 +285,12 @@ def lp9_inject_plain(small: torch.Tensor, k9, out_hw: Tuple[int, int],
     return correlate2d(resize_nearest_even_inject(small, out_hw), k9)
 
 
+def blur13_plain(x: torch.Tensor) -> torch.Tensor:
+    """GaussianBlur(13x13, sigma=3), reflect-101: the W-axis pass, then the
+    H-axis pass, each tap's product and each sum rounded to f32."""
+    return sep_correlate2d(x, AMPLITUDE_BLUR_KERNEL_1D, AMPLITUDE_BLUR_KERNEL_1D)
+
+
 def riesz_build_level_plain(octave: torch.Tensor, out_dtype: str = "f32"):
     """(hp, r, i, decimated octave): conv9, band5 on its f32 result, and
     lp9_decimate; hp, r and i rounded to ``out_dtype`` last."""
@@ -270,6 +314,7 @@ def _lib() -> ctypes.CDLL:
         "lvmt_band5": [p, p, p, i, i, p, p, i, i, i, p],
         "lvmt_lp9_inject": [p, p, i, i, i, i, p, i, i, p],
         "lvmt_riesz_build_level": [p, p, p, p, p, i, i, p, p, p, i, p],
+        "lvmt_blur13": [p, p, i, i, i, p, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)
@@ -398,3 +443,25 @@ def riesz_build_level(octave: torch.Tensor, *, out_dtype: str = "f32"):
             r.data_ptr(), i.data_ptr(), sub.data_ptr(), h, w, hp9.ctypes.data,
             t5.ctypes.data, lp9.ctypes.data, int(od == torch.bfloat16))
     return hp, r, i, sub
+
+
+def blur13(x: torch.Tensor) -> torch.Tensor:
+    """GaussianBlur(13x13, sigma=3), reflect-101, of each [H, W] plane of x:
+    [..., H, W] f32, contiguous, sides of at least 1 -> the same shape."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"blur13: expected float32, got {x.dtype}")
+    if x.ndim < 2:
+        raise ValueError(f"blur13: expected [..., H, W] planes, got shape {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("blur13: expected a contiguous tensor")
+    if x.numel() == 0:
+        raise ValueError(f"blur13: empty planes {tuple(x.shape)}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"blur13: unsupported device {x.device}")
+    if x.device.type == "cpu":
+        return blur13_plain(x)
+    out = torch.empty_like(x)
+    h, w = x.shape[-2:]
+    _launch("blur13", False, x.device, x.data_ptr(), out.data_ptr(), x.numel() // (h * w), h, w,
+            TAPS13.ctypes.data)
+    return out

@@ -28,7 +28,9 @@ first.
     ops/pallas/riesz_level_mxu.py::riesz_level_mxu (K9).
 
 The two amplify entry points compute one function and share one kernel.
-Their plain versions use the blurs and the rotation of ``ops/riesz.py``; the
+Their plain versions use the rotation of ``ops/riesz.py`` and the blur's plain
+version ``stencils.blur13_plain`` (plain PyTorch on a CUDA tensor too, so the
+card tests hold the kernels against PyTorch, not against another kernel); the
 front of the phase (K8, K9) uses the reference kernels' polynomial arccos
 (``polynomial_arccos``), not torch.arccos, as the TPU kernels do. The design
 notes (tiles, halo, the exact operation order) are at the top of the CUDA
@@ -56,12 +58,15 @@ import torch
 
 from live_video_magnification_tpu_torch.ops.conv import correlate_cols, correlate_rows
 from live_video_magnification_tpu_torch.ops.hopper._build import launch, load_library
-from live_video_magnification_tpu_torch.ops.hopper.stencils import round_bf16, round_taps_bf16
-from live_video_magnification_tpu_torch.ops.kernels import AMPLITUDE_BLUR_KERNEL_1D
+from live_video_magnification_tpu_torch.ops.hopper.stencils import (
+    TAPS13,
+    blur13_plain,
+    round_bf16,
+    round_taps_bf16,
+)
 from live_video_magnification_tpu_torch.ops.riesz import (
     RieszLevel,
     amplify_level,
-    amplitude_blur,
     phase_difference_and_amplitude,
     polynomial_arccos,
     riesz_level_sizes,
@@ -92,8 +97,7 @@ def amplify13_shapes():
     shapes += [(97, 201), (135, 241)]
     return shapes + [tuple(s) for s in riesz_level_sizes(2160, 3840, 6)[:-1]]
 
-_TAPS13 = np.ascontiguousarray(np.asarray(AMPLITUDE_BLUR_KERNEL_1D, np.float32))
-_TAPS13_BF16 = np.ascontiguousarray(round_taps_bf16(_TAPS13))
+_TAPS13_BF16 = np.ascontiguousarray(round_taps_bf16(TAPS13))
 
 
 # ---------------------------------------------------------------- plain versions
@@ -144,7 +148,7 @@ def riesz_amplify_plain(amplitude, change_c, change_s, lowpass, riesz_r, riesz_i
         x.float() for x in (amplitude, change_c, change_s, lowpass, riesz_r, riesz_i))
     wc, ws = ((change_c, change_s) if preweighted
               else (change_c * amplitude, change_s * amplitude))
-    blur = _blur_bf16 if bf16 else amplitude_blur
+    blur = _blur_bf16 if bf16 else blur13_plain
     ab = blur(amplitude)
     normalized = CompExp(blur(wc) / ab, blur(ws) / ab)
     return amplify_level(RieszLevel(lowpass, CompExp(riesz_r, riesz_i)), normalized,
@@ -271,7 +275,7 @@ def _amplify(entry: str, amplitude, change_c, change_s, lowpass, riesz_r, riesz_
         return riesz_amplify_plain(*ins, alpha, threshold, preweighted=preweighted, bf16=bf16)
     out = torch.empty(lowpass.shape, dtype=torch.float32, device=dev)
     h, w = lowpass.shape
-    taps = _TAPS13_BF16 if bf16 else _TAPS13
+    taps = _TAPS13_BF16 if bf16 else TAPS13
     _launch(entry, "lvmt_amplify13", dev, _pointers([*ins, out]), h, w,
             _f32(alpha), _f32(threshold), int(bool(preweighted)),
             int(amplitude.dtype == torch.bfloat16), int(lowpass.dtype == torch.bfloat16),
@@ -319,5 +323,5 @@ def riesz_level_mxu(cur_lp, cur_r, cur_i, old_lp, old_r, old_i, acc, lo_regs, hi
     coeff = _coeff_array(b_lo, a_lo, b_hi, a_hi)
     _launch("riesz_level_mxu", "lvmt_level_tail", dev, _pointers([*ins, *outs]), h, w,
             coeff.ctypes.data, int(rebuild), _f32(alpha), _f32(threshold),
-            _TAPS13.ctypes.data)
+            TAPS13.ctypes.data)
     return outs[0], tuple(outs[1:3]), tuple(outs[3:7]), tuple(outs[7:11])

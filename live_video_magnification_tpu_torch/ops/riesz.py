@@ -19,7 +19,8 @@ The stencils dispatch on the tensor's device (ops/hopper/stencils.py): the
 CUDA kernel for a CUDA tensor at every level, the plain version on the CPU.
 The functions here are also the plain tail (phase front, blurs, amplify),
 which ``models/riesz.py::step`` runs by default, as the reference package
-leaves its tail to XLA; the kernel tails are in ops/hopper/tail.py. Planes
+leaves its tail to XLA; its 13x13 amplitude blur is stencils.py's blur13 (a
+CUDA kernel on a card); the kernel tails are in ops/hopper/tail.py. Planes
 are [H, W] f32, except the band levels' planes under ``pyr_io="bf16"``.
 
 The reference's fast modes (``LVMT_MXU_DTYPE``, ``LVMT_PYR_IO``) change the
@@ -36,13 +37,10 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from live_video_magnification_tpu_torch.ops.conv import (
-    correlate_cols,
-    correlate_rows,
-    sep_correlate2d,
-)
+from live_video_magnification_tpu_torch.ops.conv import correlate_cols, correlate_rows
 from live_video_magnification_tpu_torch.ops.hopper.stencils import (
     band5,
+    blur13,
     conv9,
     lp9_decimate,
     lp9_inject,
@@ -50,7 +48,6 @@ from live_video_magnification_tpu_torch.ops.hopper.stencils import (
     riesz_build_level,
 )
 from live_video_magnification_tpu_torch.ops.kernels import (
-    AMPLITUDE_BLUR_KERNEL_1D,
     LOWPASS_2X,
     RIESZ_BAND_KERNEL,
     RIESZ_HIGHPASS_9x9,
@@ -218,8 +215,9 @@ def patch_nans(x: torch.Tensor) -> torch.Tensor:
 
 
 def amplitude_blur(x: torch.Tensor) -> torch.Tensor:
-    """GaussianBlur(13x13, sigma=3), reflect-101 (:110)."""
-    return sep_correlate2d(x, AMPLITUDE_BLUR_KERNEL_1D, AMPLITUDE_BLUR_KERNEL_1D)
+    """GaussianBlur(13x13, sigma=3), reflect-101 (:110), of each [H, W] plane
+    of x: blur13's kernel on a CUDA tensor, its plain version on the CPU."""
+    return blur13(x)
 
 
 class PhaseResult(NamedTuple):

@@ -160,9 +160,11 @@ def row_stencil_launches(plan: RowShardPlan) -> dict:
     where it is not; band5 per shard of a sharded last level (the plain
     ops where it is not); in the collapse, conv9 on every shard of a
     sharded level, and lp9_inject on every shard where the coarser level
-    is sharded too, once where it is not. No tail kernel and no K10."""
+    is sharded too, once where it is not; the plain tail's three blur13 a
+    band level, on every shard where it is sharded and once where it is not.
+    No tail kernel and no K10."""
     want = {"conv9": 0, "band5": 0, "lp9_decimate": 0, "lp9_inject": 0,
-            "riesz_build_level": 0}
+            "riesz_build_level": 0, "blur13": 0}
     last = plan.levels - 1
     on = lambda l: plan.n if plan.sharded[l] else 1
     for l in range(last):
@@ -173,6 +175,7 @@ def row_stencil_launches(plan: RowShardPlan) -> dict:
                 want[k] += on(l)
         want["lp9_inject"] += on(l + 1)
         want["conv9"] += on(l)
+        want["blur13"] += 3 * on(l)
     if plan.sharded[last]:
         want["band5"] += plan.n
     return want

@@ -1,5 +1,6 @@
 """Card-only tests of the port: the CUDA stencil, build and tail kernels
-(with their bf16 arms) against their plain versions, the phase step
+(with their bf16 arms) and the plain tail's amplitude blur (blur13) against
+their plain versions, the phase step
 (under each tail configuration, each build and the fast flags) and chain on
 the card against the CPU, the motion and colour modes (step, chain and
 ClipProcessor) on the card against the CPU, the time-parallel clip path
@@ -164,6 +165,137 @@ def test_cuda_tensors_never_take_the_plain_version(cuda, monkeypatch):
     stencils.lp9_decimate(x, LP2)
     stencils.lp9_inject(x, LP2, (79, 120))
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------- the plain tail's amplitude blur
+
+
+def _bits_nan(got, ref):
+    """Bit-equal, the sign of a zero included; NaN where ref has NaN."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype and got.device == ref.device
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got.view(torch.int32)[~nan], ref.view(torch.int32)[~nan])
+
+
+def _specials(x):
+    """``_zeros_and_tiny(x)`` with a NaN and both infinities, where the shape
+    allows."""
+    x = _zeros_and_tiny(x)
+    h, w = x.shape[-2:]
+    x[..., (2 * h) // 3, (2 * w) // 3] = float("nan")
+    if h * w > 4:
+        x[..., h - 1, w - 1] = float("inf")
+        x[..., h // 2, 0] = float("-inf")
+    return x
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", stencils.blur13_shapes())
+def test_blur13_equals_its_plain_version_bit_for_bit(cuda, shape, offset):
+    """Every shape of ``stencils.blur13_shapes()`` (sides 1 to 14 on either
+    side, the tile's edges, every band level of 1080p and of 2160x3840
+    levels 6), aligned and one element off, on a plain plane and on one
+    with NaN, infinities, -0 and subnormals."""
+    before = stencils.LAUNCHES["blur13"]
+    for x in (_plane(shape, cuda), _specials(_plane(shape, cuda, seed=1))):
+        if offset:
+            x = _misaligned(x)
+        _bits_nan(stencils.blur13(x), stencils.blur13_plain(x))
+    torch.cuda.synchronize()
+    assert stencils.LAUNCHES["blur13"] == before + 2
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(5, 135, 241), (32, 68, 120), (32, 270, 480), (3, 2, 70, 64),
+                                   (2, 7, 13)])
+def test_blur13_blurs_a_batch_of_planes_in_one_launch(cuda, shape, offset):
+    """[T, H, W] (the time-parallel path's; 32 x 270 x 480 in tall tiles)
+    and [B, T, H, W]: one launch, each plane bit for bit the plain
+    version's, aligned and one element off."""
+    x = _specials(_plane(shape[-2:], cuda).expand(shape).contiguous()
+                  + torch.arange(int(np.prod(shape[:-2])), device=cuda,
+                                 dtype=torch.float32).reshape(*shape[:-2], 1, 1))
+    if offset:
+        x = _misaligned(x)
+    before = stencils.LAUNCHES["blur13"]
+    got = stencils.blur13(x)
+    torch.cuda.synchronize()
+    assert stencils.LAUNCHES["blur13"] == before + 1
+    _bits_nan(got, stencils.blur13_plain(x))
+    flat = x.reshape(-1, *shape[-2:])
+    for k, plane in enumerate(got.reshape(-1, *shape[-2:])):
+        _bits_nan(plane, stencils.blur13_plain(flat[k].contiguous()))
+
+
+def test_a_4k_phase_frame_launches_15_blurs_and_no_plain_stencil(cuda, monkeypatch):
+    """The jnp tail at 2160x3840 levels 6 on the card: 15 blur13 launches a
+    frame (three a band level), and no ``*_plain`` stencil or tail function
+    called for a CUDA tensor."""
+    from live_video_magnification_tpu_torch.models import riesz
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+    from live_video_magnification_tpu_torch.ops.temporal import butterworth_bandpass_coeffs
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for mod, names in ((stencils, ("conv9_plain", "band5_plain", "lp9_decimate_plain",
+                                   "lp9_inject_plain", "riesz_build_level_plain",
+                                   "blur13_plain")),
+                       (tail, ("riesz_phase_df2_fused_plain", "riesz_amplify_plain",
+                               "riesz_level_mxu_plain", "blur13_plain"))):
+        for name in names:
+            monkeypatch.setattr(mod, name, refuse)
+    h, w, levels = 2160, 3840, 6
+    c3 = lambda v: tuple(float(x) for x in np.asarray(v, np.float32))
+    (b_lo, a_lo), (b_hi, a_hi) = (butterworth_bandpass_coeffs(1.0, 30.0),
+                                  butterworth_bandpass_coeffs(5.0, 30.0))
+    dyn = riesz.RieszDynParams(50.0, float(np.float32(0.5 * np.pi)), c3(b_lo), c3(a_lo),
+                               c3(b_hi), c3(a_hi), False, False)
+    state = riesz.init_state(h, w, levels, device=cuda)
+    assert riesz.blur_launches(h, w, levels) == 15
+    for f in moving_clip(2, h, w, seed=9):
+        chw = torch.from_numpy(np.ascontiguousarray(f.transpose(2, 0, 1))).to(cuda)
+        before = dict(stencils.LAUNCHES)
+        state, _ = riesz.step(state, chw, dyn, levels=levels, tail="jnp")
+        torch.cuda.synchronize()
+        assert stencils.LAUNCHES["blur13"] - before["blur13"] == 15
+        assert stencils.LAUNCHES["conv9"] - before["conv9"] == 10
+
+
+@pytest.mark.parametrize("phase_fused", [False, True], ids=["jnp", "phase_fused"])
+def test_phase_chain_frames_equal_those_of_the_plain_blur(cuda, phase_fused, monkeypatch):
+    """A jnp phase chain on the card at 540x960 levels 6 (the plain tail's
+    three blurs on each of five band levels; alone and after K8 under
+    LVMT_PHASE_FUSED) gives the same frames, byte for byte, as with
+    ``amplitude_blur`` monkeypatched to ``blur13_plain``: the kernel changes
+    no output."""
+    from live_video_magnification_tpu_torch.models import riesz as model
+    from live_video_magnification_tpu_torch.models.chain import MagnificationChain
+    from live_video_magnification_tpu_torch.ops import riesz as ops_riesz
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    if phase_fused:
+        monkeypatch.setenv("LVMT_PHASE_FUSED", "1")
+    cfg = _phase_cfg(levels=6)
+    clip = moving_clip(6, 540, 960, seed=14)
+
+    def run():
+        chain = MagnificationChain(device=cuda)
+        return np.stack([chain.process(f, cfg)[0].cpu().numpy() for f in clip])
+
+    before = stencils.LAUNCHES["blur13"]
+    kernel = run()
+    assert stencils.LAUNCHES["blur13"] - before == 6 * 3 * 5
+    with monkeypatch.context() as m:
+        m.setattr(ops_riesz, "amplitude_blur", stencils.blur13_plain)
+        m.setattr(model, "amplitude_blur", stencils.blur13_plain)
+        before = stencils.LAUNCHES["blur13"]
+        plain = run()
+        assert stencils.LAUNCHES["blur13"] == before
+    np.testing.assert_array_equal(kernel, plain)
+    assert not np.array_equal(kernel[1], clip[1])  # magnified after the first frame
 
 
 def test_chain_on_the_card_matches_the_cpu(cuda):
@@ -340,14 +472,15 @@ def test_build_level_equals_plain_version_and_the_three_stencils(cuda, shape, ou
 def _zeros_and_tiny(x):
     """x with a band of zeros (signed zeros in the outputs), a patch of -0
     and a patch of tiny and subnormal values (products below f32's smallest
-    subnormal, bf16 operands included), where the shape allows."""
+    subnormal, bf16 operands included), where the shape allows; each plane
+    of an [..., H, W] batch alike."""
     x = x.clone()
-    h, w = x.shape
-    x[: h // 3] = 0.0
-    x[h // 3:, : min(3, w)] = -0.0
+    h, w = x.shape[-2:]
+    x[..., : h // 3, :] = 0.0
+    x[..., h // 3:, : min(3, w)] = -0.0
     if h > 8 and w > 12:
-        x[h // 2: h // 2 + 4, 4:12] = torch.tensor([1e-30, -3e-36, 1e-39, -1e-42],
-                                                   device=x.device)[:, None]
+        x[..., h // 2: h // 2 + 4, 4:12] = torch.tensor([1e-30, -3e-36, 1e-39, -1e-42],
+                                                        device=x.device)[:, None]
     return x
 
 
@@ -704,9 +837,11 @@ def test_time_parallel_on_the_card_matches_sequential_and_the_cpu(cuda, mode, le
     sequential ClipProcessor on the card (motion, colour within 1 LSB; phase
     >= 40 dB) and against its own run on the CPU (phase >= 40 dB, motion
     within 1 LSB, colour >= 45 dB); phase launches its f32 stencils once a
-    frame and level (``ops/riesz.py::stencil_launches``) and no tail kernel,
-    motion and colour none."""
+    frame and level (``ops/riesz.py::stencil_launches``), its blur13 once a
+    chunk (``models/riesz.py::blur_launches``) and no tail kernel, motion and
+    colour none."""
     from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.hopper import tail
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
     from live_video_magnification_tpu_torch.utils.metrics import psnr_u8
@@ -726,7 +861,8 @@ def test_time_parallel_on_the_card_matches_sequential_and_the_cpu(cuda, mode, le
                     {k: v - before[1][k] for k, v in tail.LAUNCHES.items()})
         runs[name] = np.concatenate(outs)
         if name == "par":
-            want = ({k: v * t for k, v in stencil_launches(h, w, levels).items()}
+            want = ({**{k: v * t for k, v in stencil_launches(h, w, levels).items()},
+                     "blur13": 2 * blur_launches(h, w, levels)}  # a batch a chunk
                     if mode == "phase" else {k: 0 for k in stencils.LAUNCHES})
             assert launched == (want, {k: 0 for k in tail.LAUNCHES}), launched
     for other in ("seq", "cpu"):
@@ -871,6 +1007,7 @@ def test_the_step_graph_equals_the_eager_step_bit_for_bit(cuda, mode, h, w, leve
     from live_video_magnification_tpu_torch.engine import profiling
     from live_video_magnification_tpu_torch.export import batch
     from live_video_magnification_tpu_torch.models.chain import StepGraph
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
     from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
 
@@ -888,7 +1025,8 @@ def test_the_step_graph_equals_the_eager_step_bit_for_bit(cuda, mode, h, w, leve
     if mode == "phase" and not fast:
         per_frame = stencil_launches(h, w, levels)
         assert per_frame["riesz_build_level"] == 0 < per_frame["conv9"]
-        assert want[1][2][0] == {k: 8 * v for k, v in per_frame.items()}
+        assert want[1][2][0] == {**{k: 8 * v for k, v in per_frame.items()},
+                                 "blur13": 8 * blur_launches(h, w, levels)}
     if fast:
         assert any(want[1][2][1].values())  # the bf16 arms' launches
     np.testing.assert_array_equal(want[0][0][0][0], tchw[0])  # the first frame passes through
@@ -1217,20 +1355,23 @@ def test_time_mesh_on_virtual_shards_matches_the_unsharded_path(cuda, mode, leve
     unsharded time-parallel path: within 1 LSB. Phase launches its f32
     stencils once a frame and level summed over the shards
     (``ops/riesz.py::stencil_launches``: K1-K4 23 a frame, K5 once, on the
-    68x120 level), and no tail or halo kernel; motion and colour launch
-    none of K1-K10."""
+    68x120 level) and its blur13 once a shard (``models/riesz.py::
+    blur_launches``: 15), and no tail or halo kernel; motion and colour
+    launch none of K1-K10."""
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
 
     t = 8
     sharded, unsharded, launched, lv = _time_mesh_runs(mode, levels, fps, t, [cuda] * 4)
     lsb = int(np.abs(sharded.astype(np.int16) - unsharded.astype(np.int16)).max())
     assert lsb <= 1, f"{mode}: {lsb} LSB against the unsharded path"
-    want = ({k: v * t for k, v in stencil_launches(1080, 1920, lv).items()}
+    want = ({**{k: v * t for k, v in stencil_launches(1080, 1920, lv).items()},
+             "blur13": 4 * blur_launches(1080, 1920, lv)}
             if mode == "phase" else {k: 0 for k in stencils.LAUNCHES})
     assert launched[0] == want, launched
     if mode == "phase":
         assert want == {"conv9": 9 * t, "band5": 4 * t, "lp9_decimate": 4 * t,
-                        "lp9_inject": 5 * t, "riesz_build_level": t}
+                        "lp9_inject": 5 * t, "riesz_build_level": t, "blur13": 4 * 15}
     assert all(v == 0 for m in launched[1:] for v in m.values()), launched
 
 
@@ -1262,10 +1403,12 @@ def _phase_cfg(levels=6, fps=30.0):
 def test_controller_on_the_card_launches_the_stencils_of_every_frame(cuda):
     """PlaybackController on the card, a lossless 1080x1920 synthetic source,
     phase levels 6: every frame processed, none an error, and exactly the
-    stencil launches of ``ops/riesz.py::stencil_launches`` a frame."""
+    stencil launches of ``ops/riesz.py::stencil_launches`` and the blur13 of
+    ``models/riesz.py::blur_launches`` a frame."""
     import time
 
     from live_video_magnification_tpu_torch.engine.controller import PlaybackController
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
 
     n = 6
@@ -1285,7 +1428,9 @@ def test_controller_on_the_card_launches_the_stencils_of_every_frame(cuda):
     finally:
         ctrl.close()
     assert (s.processed, s.proc_errors, s.read_errors) == (n, 0, 0)
-    assert dict(stencils.LAUNCHES) == {k: v * n for k, v in stencil_launches(1080, 1920, 6).items()}
+    assert dict(stencils.LAUNCHES) == {**{k: v * n for k, v in
+                                          stencil_launches(1080, 1920, 6).items()},
+                                       "blur13": n * blur_launches(1080, 1920, 6)}
     assert pair.processed.data.shape == (1080, 1920, 3) and pair.processed.seq == n - 1
     assert not np.array_equal(pair.processed.data, pair.original.data)
 
@@ -1335,10 +1480,11 @@ def test_gui_record_flow_on_the_card_equals_a_fresh_chain(cuda):
     switched to phase at levels 6, a synthetic camera recorded and exported
     with an edited amplification by ``Exporter(device="cuda")``; every
     written frame bit for bit a fresh chain's (checked inside) and exactly
-    ``stencil_launches`` a frame."""
+    ``stencil_launches`` and ``blur_launches`` a frame."""
     import sys
     from pathlib import Path
 
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
     from live_video_magnification_tpu_torch.ops.hopper import halo, tail
     from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
 
@@ -1350,7 +1496,8 @@ def test_gui_record_flow_on_the_card_equals_a_fresh_chain(cuda):
     assert row["bit_equal_to_chain"] and row["frames"] >= 5
     assert row["export_amplification"] == row["live_amplification"] + 30
     assert row["stencil_launches_per_frame"] == {
-        k: float(v) for k, v in stencil_launches(270, 480, row["levels"]).items() if v}
+        **{k: float(v) for k, v in stencil_launches(270, 480, row["levels"]).items() if v},
+        "blur13": float(blur_launches(270, 480, row["levels"]))}
 
 
 @pytest.mark.parametrize("flags", [[], ["--mode", "laplace"], ["--mode", "color"],

@@ -353,17 +353,22 @@ def test_row_sharded_step_equals_unsharded_step(mode, mesh_shape, hw, levels, ch
 def test_phase_fallback_launches_the_planned_stencils(monkeypatch):
     """Every stencil entry point the row-sharded phase step calls, counted a
     frame against row_stencil_launches(plan) (on the card each call is one
-    launch); the row halos never reach K10."""
+    launch), the plain tail's blur13 included; the row halos never reach K10."""
+    from live_video_magnification_tpu_torch.ops import riesz as triesz_ops
+
     h, w, levels, n = 256, 202, 5, 4
-    calls = {k: 0 for k in ("conv9", "band5", "lp9_decimate", "lp9_inject", "riesz_build_level")}
+    calls = {k: 0 for k in ("conv9", "band5", "lp9_decimate", "lp9_inject", "riesz_build_level",
+                            "blur13")}
     for name in calls:
-        fn = getattr(stencils, name)
+        # amplitude_blur calls blur13 by the name ops/riesz.py imports
+        module = triesz_ops if name == "blur13" else stencils
+        fn = getattr(module, name)
 
         def counted(*args, _fn=fn, _name=name, **kw):
             calls[_name] += 1
             return _fn(*args, **kw)
 
-        monkeypatch.setattr(stencils, name, counted)
+        monkeypatch.setattr(module, name, counted)
     k10 = dict(khalo.LAUNCHES)
     monkeypatch.setattr(khalo, "halo_exchange_cols_rdma",
                         lambda *a, **k: pytest.fail("K10 called on the row path"))
@@ -372,9 +377,11 @@ def test_phase_fallback_launches_the_planned_stencils(monkeypatch):
     plan = rs.make_row_plan(h, w, levels, n)
     want = rs.row_stencil_launches(plan)
     # levels 256x202, 128x101 sharded (K1-K3), 64x51 sharded and 32x26
-    # gathered (K5), 16x13 the gathered residual (plain band pair)
+    # gathered (K5), 16x13 the gathered residual (plain band pair); three
+    # blurs a band level and shard, once on the gathered one
     assert want == {"conv9": 2 * 4 + 3 * 4 + 1, "band5": 2 * 4, "lp9_decimate": 2 * 4,
-                    "lp9_inject": 2 * 4 + 2, "riesz_build_level": 4 + 1}
+                    "lp9_inject": 2 * 4 + 2, "riesz_build_level": 4 + 1,
+                    "blur13": 3 * (3 * 4 + 1)}
     for ti in range(2):
         before = dict(calls)
         state, _ = step(state, torch.from_numpy(frames[:, ti]), _port_dyn(M.PHASE))
@@ -383,7 +390,7 @@ def test_phase_fallback_launches_the_planned_stencils(monkeypatch):
     # a gathered level of 16-95 px builds with K5 once, as the unsharded step
     assert rs.row_stencil_launches(rs.make_row_plan(768, 1366, 6, 4)) == {
         "conv9": 4 * 4 + 4 * 4 + 1, "band5": 4 * 4, "lp9_decimate": 4 * 4,
-        "lp9_inject": 3 * 4 + 2, "riesz_build_level": 1}
+        "lp9_inject": 3 * 4 + 2, "riesz_build_level": 1, "blur13": 3 * (4 * 4 + 1)}
 
 
 @pytest.mark.parametrize("mode", [M.PHASE, M.LAPLACE, M.COLOR])
