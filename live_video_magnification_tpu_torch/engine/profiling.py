@@ -1,5 +1,6 @@
 """The port's span recorder: named regions at the boundaries of the live
-consumer and the clip export, and inside the colour step, kept in memory.
+consumer and the clip export, and inside the colour step and the
+time-parallel phase clip, kept in memory.
 
 ``span(name, id)`` is a context manager. Off (the default) it checks one
 module-level flag and returns a shared null context: nothing is recorded,

@@ -398,7 +398,22 @@ def process_clip_parallel(frames_u8, dyn: RieszDynParams, *, levels: int,
     fold of the shard totals then carries in (``df2_dual_carry``,
     ``df2_dual_carry_outputs``). Every process ends with the whole chunk's
     state on its first shard's device, where the carried state lies (global
-    shard 0 is the first of its process)."""
+    shard 0 is the first of its process).
+
+    The stages open device spans of the port's recorder
+    (``engine/profiling.py``; inert while it is off), each timed by CUDA
+    events on the first shard's device and taking its id from the enclosing
+    span (the clip export's ``export.step``: the chunk's cursor):
+    ``phase_tp.build`` (Lab, the T pyramids batched by level, the one-frame
+    halo), for each band level ``phase_tp.difference`` (the shifted priors,
+    the phase difference and the amplitude blur), ``phase_tp.scan`` (both
+    components' DF-II dual-filter scans and their carries) and
+    ``phase_tp.amplify`` (normalize and amplify), then ``phase_tp.collapse``
+    (the carried pyramid, the T collapses, Lab -> BGR u8, the passthrough
+    rules)."""
+    # imported here: importing the engine package imports the models
+    from live_video_magnification_tpu_torch.engine.profiling import span
+
     split = shards is not None
     if not split:
         t, _, h, w = frames_u8.shape
@@ -414,23 +429,25 @@ def process_clip_parallel(frames_u8, dyn: RieszDynParams, *, levels: int,
     first = state.count == 0
     ids = [shards.index(j) for j in range(len(frames))]
     coeffs = (dyn.b_lo, dyn.a_lo, dyn.b_hi, dyn.a_hi)
-    span = frames[0].shape[0]  # every shard holds as many frames
+    per_shard = frames[0].shape[0]  # every shard holds as many frames
+    dev = shards.home
 
     def init(x):  # the filters start from zero on the first frame
         return torch.zeros_like(x) if first else x
 
     labs, pyrs = [], []
-    for f in frames:
-        lab = bgr_to_lab(u8_to_unit_f32(f))  # [T, 3, H, W]
-        per_frame = [build_riesz_pyramid(lab[i, 0], levels) for i in range(f.shape[0])]
-        pyrs.append([_batched_level([p[lvl] for p in per_frame]) for lvl in range(levels)])
-        labs.append(lab)
-        del per_frame
-    # the one-frame halo: each shard's last pyramid, for the next shard's
-    # prior and (the last shard's) the new state's
-    priors, last = last_frames(shards, [
-        [x for p in pyr for x in (p.lowpass[-1], p.riesz.cos[-1], p.riesz.sin[-1])]
-        for pyr in pyrs])
+    with span("phase_tp.build", device=dev):
+        for f in frames:
+            lab = bgr_to_lab(u8_to_unit_f32(f))  # [T, 3, H, W]
+            per_frame = [build_riesz_pyramid(lab[i, 0], levels) for i in range(f.shape[0])]
+            pyrs.append([_batched_level([p[lvl] for p in per_frame]) for lvl in range(levels)])
+            labs.append(lab)
+            del per_frame
+        # the one-frame halo: each shard's last pyramid, for the next shard's
+        # prior and (the last shard's) the new state's
+        priors, last = last_frames(shards, [
+            [x for p in pyr for x in (p.lowpass[-1], p.riesz.cos[-1], p.riesz.sin[-1])]
+            for pyr in pyrs])
 
     new_acc: List[CompExp] = []
     new_lo: List[RegPair] = []
@@ -438,22 +455,24 @@ def process_clip_parallel(frames_u8, dyn: RieszDynParams, *, levels: int,
     lowpasses: List[List[torch.Tensor]] = [[] for _ in frames]
     for lvl in range(levels - 1):
         results = []
-        for j, k in enumerate(ids):
-            cur = pyrs[j][lvl]
-            # prior[t] = cur[t-1]; prior[0] = the carried pyramid, or cur[0] on
-            # the first frame, or the last pyramid of the shard before
-            if k > 0:
-                seed = RieszLevel(priors[j][3 * lvl], CompExp(*priors[j][3 * lvl + 1:3 * lvl + 3]))
-            elif first:
-                seed = RieszLevel(cur.lowpass[0], CompExp(cur.riesz.cos[0], cur.riesz.sin[0]))
-            else:
-                seed = level_f32(state.old[lvl])
-            shift = lambda x, s: torch.cat([s[None], x[:-1]])
-            prior = RieszLevel(shift(cur.lowpass, seed.lowpass),
-                               CompExp(shift(cur.riesz.cos, seed.riesz.cos),
-                                       shift(cur.riesz.sin, seed.riesz.sin)))
-            results.append(phase_difference_and_amplitude(cur, prior))
-            del prior
+        with span("phase_tp.difference", device=dev):
+            for j, k in enumerate(ids):
+                cur = pyrs[j][lvl]
+                # prior[t] = cur[t-1]; prior[0] = the carried pyramid, or cur[0]
+                # on the first frame, or the last pyramid of the shard before
+                if k > 0:
+                    seed = RieszLevel(priors[j][3 * lvl],
+                                      CompExp(*priors[j][3 * lvl + 1:3 * lvl + 3]))
+                elif first:
+                    seed = RieszLevel(cur.lowpass[0], CompExp(cur.riesz.cos[0], cur.riesz.sin[0]))
+                else:
+                    seed = level_f32(state.old[lvl])
+                shift = lambda x, s: torch.cat([s[None], x[:-1]])
+                prior = RieszLevel(shift(cur.lowpass, seed.lowpass),
+                                   CompExp(shift(cur.riesz.cos, seed.riesz.cos),
+                                           shift(cur.riesz.sin, seed.riesz.sin)))
+                results.append(phase_difference_and_amplitude(cur, prior))
+                del prior
         acc, lo, hi = state.acc[lvl], state.lo[lvl], state.hi[lvl]
 
         def dual(comp):  # one component at a time: the scan's planes are large
@@ -472,54 +491,57 @@ def process_clip_parallel(frames_u8, dyn: RieszDynParams, *, levels: int,
                 finals.append(list(fin))
             ins, fin = fold_carries(
                 shards.gather(finals),
-                lambda local, s: df2_dual_carry(local, s, *coeffs, at=span - 1))
+                lambda local, s: df2_dual_carry(local, s, *coeffs, at=per_shard - 1))
             for j, k in enumerate(ids):
                 if k > 0:
                     ys[j] = df2_dual_carry_outputs(*ys[j], ins[k], *coeffs)
             return ys, tuple(v.to(shards.home) for v in fin)
 
-        (ys_c, fc), (ys_s, fs) = dual("cos"), dual("sin")
+        with span("phase_tp.scan", device=dev):
+            (ys_c, fc), (ys_s, fs) = dual("cos"), dual("sin")
         new_acc.append(CompExp(fc[0], fs[0]))
         new_lo.append(RegPair(CompExp(fc[1], fs[1]), CompExp(fc[2], fs[2])))
         new_hi.append(RegPair(CompExp(fc[3], fs[3]), CompExp(fc[4], fs[4])))
-        for j in range(len(frames)):
-            (lo_c, hi_c), (lo_s, hi_s) = ys_c[j], ys_s[j]
-            ys_c[j] = ys_s[j] = None
-            pr = results[j]
-            results[j] = None
-            normalized = normalize_phase(CompExp(hi_c, hi_s), CompExp(lo_c, lo_s),
-                                         pr.amplitude, pr.amplitude_blurred)
-            del lo_c, hi_c, lo_s, hi_s, pr
-            lowpasses[j].append(amplify_level(pyrs[j][lvl], normalized, dyn.amplification,
-                                              dyn.threshold))
-            del normalized
+        with span("phase_tp.amplify", device=dev):
+            for j in range(len(frames)):
+                (lo_c, hi_c), (lo_s, hi_s) = ys_c[j], ys_s[j]
+                ys_c[j] = ys_s[j] = None
+                pr = results[j]
+                results[j] = None
+                normalized = normalize_phase(CompExp(hi_c, hi_s), CompExp(lo_c, lo_s),
+                                             pr.amplitude, pr.amplitude_blurred)
+                del lo_c, hi_c, lo_s, hi_s, pr
+                lowpasses[j].append(amplify_level(pyrs[j][lvl], normalized, dyn.amplification,
+                                                  dyn.threshold))
+                del normalized
     for j in range(len(frames)):
         lowpasses[j].append(pyrs[j][levels - 1].lowpass)  # untouched residual octave
 
-    # "*st.old = *st.cur": the chunk's last pyramid, in the carried dtypes
-    new_old = tuple(
-        RieszLevel(last[3 * lvl].to(o.lowpass.dtype, copy=True),
-                   CompExp(last[3 * lvl + 1].to(o.riesz.cos.dtype, copy=True),
-                           last[3 * lvl + 2].to(o.riesz.sin.dtype, copy=True)))
-        for lvl, o in enumerate(state.old))
-    del pyrs, last, priors
     outs = []
-    for j, k in enumerate(ids):
-        t = frames[j].shape[0]
-        magnified = torch.stack([collapse_riesz_pyramid([lp[i] for lp in lowpasses[j]])
-                                 for i in range(t)])
-        lowpasses[j] = None
-        merged = torch.stack([magnified, labs[j][:, 1], labs[j][:, 2]], dim=1)
-        labs[j] = None
-        out = to_u8(lab_to_bgr(merged), 255.0, 1.0 / 255.0)
-        del magnified, merged
-        # the first frame of a clip, and every frame under degenerate
-        # coefficients, pass the raw input through (MagnifyCore.hpp:226-239)
-        if dyn.force_init:
-            out = frames[j].clone()
-        elif first and k == 0:
-            out[0] = frames[j][0]
-        outs.append(out)
-    new_state = RieszState(state.count + span * shards.count, new_old, tuple(new_acc), tuple(new_lo),
-                           tuple(new_hi))
+    with span("phase_tp.collapse", device=dev):
+        # "*st.old = *st.cur": the chunk's last pyramid, in the carried dtypes
+        new_old = tuple(
+            RieszLevel(last[3 * lvl].to(o.lowpass.dtype, copy=True),
+                       CompExp(last[3 * lvl + 1].to(o.riesz.cos.dtype, copy=True),
+                               last[3 * lvl + 2].to(o.riesz.sin.dtype, copy=True)))
+            for lvl, o in enumerate(state.old))
+        del pyrs, last, priors
+        for j, k in enumerate(ids):
+            t = frames[j].shape[0]
+            magnified = torch.stack([collapse_riesz_pyramid([lp[i] for lp in lowpasses[j]])
+                                     for i in range(t)])
+            lowpasses[j] = None
+            merged = torch.stack([magnified, labs[j][:, 1], labs[j][:, 2]], dim=1)
+            labs[j] = None
+            out = to_u8(lab_to_bgr(merged), 255.0, 1.0 / 255.0)
+            del magnified, merged
+            # the first frame of a clip, and every frame under degenerate
+            # coefficients, pass the raw input through (MagnifyCore.hpp:226-239)
+            if dyn.force_init:
+                out = frames[j].clone()
+            elif first and k == 0:
+                out[0] = frames[j][0]
+            outs.append(out)
+    new_state = RieszState(state.count + per_shard * shards.count, new_old, tuple(new_acc),
+                           tuple(new_lo), tuple(new_hi))
     return new_state, (outs if split else outs[0])

@@ -878,6 +878,51 @@ def test_time_parallel_on_the_card_matches_sequential_and_the_cpu(cuda, mode, le
             assert lsb <= 1, f"against {other}: max {lsb} LSB"
 
 
+def test_the_time_parallel_spans_read_their_device_time_on_the_card(cuda):
+    """With the recorder on, ClipProcessor(time_parallel=True) in phase at
+    136x240 levels 4, two chunks: each chunk's stage spans carry its cursor
+    and, once it is back, their CUDA events' time; the launches are exactly
+    those of the recorder off (``stencil_launches`` a frame, the blurs a
+    chunk, no tail kernel), and so are the frames."""
+    import time
+
+    from live_video_magnification_tpu_torch.engine import profiling
+    from live_video_magnification_tpu_torch.export.batch import ClipProcessor
+    from live_video_magnification_tpu_torch.models.riesz import blur_launches
+    from live_video_magnification_tpu_torch.ops.hopper import tail
+    from live_video_magnification_tpu_torch.ops.riesz import stencil_launches
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    h, w, levels, t = 136, 240, 4, 8
+    cfg = _mode_cfg("phase", levels, 30.0)
+    tchw = np.ascontiguousarray(moving_clip(t, h, w, seed=10).transpose(0, 3, 1, 2))
+    want = ({**{k: v * t for k, v in stencil_launches(h, w, levels).items()},
+             "blur13": 2 * blur_launches(h, w, levels)}, {k: 0 for k in tail.LAUNCHES})
+    runs = []
+    for on in (False, True):
+        proc = ClipProcessor(cfg, h, w, 3, time_parallel=True, device=cuda)
+        before = dict(stencils.LAUNCHES), dict(tail.LAUNCHES)
+        t0 = time.monotonic()
+        if on:
+            profiling.enable()
+        try:
+            runs.append(np.concatenate([proc.process_chunk(tchw[:t // 2])[0],
+                                        proc.process_chunk(tchw[t // 2:])[0]]))
+        finally:
+            profiling.disable()
+        torch.cuda.synchronize(cuda)
+        launched = ({k: v - before[0][k] for k, v in stencils.LAUNCHES.items()},
+                    {k: v - before[1][k] for k, v in tail.LAUNCHES.items()})
+        assert launched == want, (on, launched)
+    np.testing.assert_array_equal(runs[0], runs[1])
+    held = profiling.spans(t0, time.monotonic())
+    stages = [s for s in held if s.name.startswith("phase_tp.")]
+    assert len(stages) == 2 * (2 + 3 * (levels - 1))
+    assert sorted({s.id for s in stages}) == [0, t // 2]
+    assert all(s.parent.name == "export.step" and s.id == s.parent.id for s in stages)
+    assert all(s.device_ms is not None and s.device_ms > 0 for s in stages)
+
+
 # ---------------------------------------------------------------- the clip export's readback
 
 @pytest.mark.parametrize("mode,levels", [("phase", 4), ("laplace", 4)])
