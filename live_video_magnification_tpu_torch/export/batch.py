@@ -22,6 +22,21 @@ launch counters (``ops/hopper/{stencils,tail}.py``) count the calls of the
 eager frames, the warm-up's and the capture's; a replay runs the captured
 kernels without a call, so only a device trace counts its launches.
 
+On a card the sequential path uploads a chunk on the host one frame ahead
+of its steps (``stages``), through a ring of ``RING`` frame slots that the
+processor allocates on its first such chunk and keeps (``_UploadRing``; made
+anew only for another frame shape): a pinned host slot and a device buffer
+each, and an upload stream of the ring's own, so the copy engine carries
+frame i+1 while the card runs step i. The host copies frame i+1 into its
+pinned slot (a pinned chunk too) before it issues step i, once the slot's
+last upload is done; the upload stream waits until the slot's device buffer
+is free (its last frame's panes copied out on the copy stream, which waited
+for that frame's step) and enqueues the copy; the step waits for its
+frame's upload. The steps, the graph and the readback are those of a chunk
+already on the card, so the frames are bit for bit the same. A chunk
+already on the card is not copied; the time-parallel path copies the whole
+chunk at once (its first kernel reads every frame), as does the CPU.
+
 The panes come back into host tensors fresh each chunk: on a card pinned
 ones (PyTorch's caching host allocator reuses freed ones), filled on a copy
 stream of the processor's own, where frame i's two copies are enqueued right
@@ -30,8 +45,13 @@ end waits only for the last of them; on the CPU plain ones, filled by plain
 copies. The time-parallel path fills them once, after the chunk.
 
 A chunk is traced as ``export.chunk`` (id: the cursor) holding
-``export.h2d``, an ``export.step`` for each frame (id: its index in the clip;
-one around the whole chunk on the time-parallel path) with an
+``export.h2d`` (id: the cursor, bytes: the chunk's; staged, the part of the
+upload that nothing hides: frame 0's staging and copy, its CUDA events on
+the upload stream), on the staged path an ``export.stage`` for each frame
+(id: its index in the clip, bytes: the frame's; its staging and copy, events
+on the upload stream; frame 0's inside ``export.h2d``, frame i+1's before
+frame i's step), an ``export.step`` for each frame (id: its index in the
+clip; one around the whole chunk on the time-parallel path) with an
 ``export.replay`` inside where the frame replays the graph, on a card an
 ``export.d2h`` on the copy stream for each frame's copies (one for the
 chunk's time-parallel), and ``export.readback``: on a card the wait for the
@@ -66,6 +86,8 @@ from live_video_magnification_tpu_torch.models.riesz import KernelFlags
 # RieszState with the shared phase accumulator; motion and colour unchanged).
 STATE_FORMAT_VERSION = 2
 
+RING = 3  # the upload ring's frame slots (module docstring)
+
 
 def replays(step: ChainStep, device: torch.device, time_parallel: bool, count: int, dyn) -> bool:
     """Whether a frame of the clip export replays the captured step: on a
@@ -73,6 +95,44 @@ def replays(step: ChainStep, device: torch.device, time_parallel: bool, count: i
     admits the frame. Every other frame runs eagerly."""
     return (device.type == "cuda" and not time_parallel and step.steady is not None
             and step.steady(count, dyn))
+
+
+def stages(device: torch.device, time_parallel: bool, frames: torch.Tensor) -> bool:
+    """Whether a chunk is uploaded one frame ahead of its steps through the
+    processor's upload ring: on a CUDA device, on the sequential path, for a
+    chunk on the host. A chunk on the card needs no copy; every other chunk
+    is copied whole before its first step."""
+    return device.type == "cuda" and not time_parallel and frames.device.type == "cpu"
+
+
+class _UploadRing:
+    """``RING`` slots of one [C, H, W] frame shape: a pinned host slot and a
+    device buffer each, an upload stream, and two events a slot: ``uploaded``
+    (the slot's last copy, on the upload stream) and ``freed`` (the slot's
+    last frame's panes copied out, on the copy stream)."""
+
+    def __init__(self, frame: torch.Tensor, device: torch.device):
+        self.key = (frame.shape, frame.dtype)
+        self.stream = torch.cuda.Stream(device)
+        self.pinned = [torch.empty(frame.shape, dtype=frame.dtype, pin_memory=True)
+                       for _ in range(RING)]
+        self.frames = [torch.empty(frame.shape, dtype=frame.dtype, device=device)
+                       for _ in range(RING)]
+        self.uploaded = [torch.cuda.Event() for _ in range(RING)]
+        self.freed = [torch.cuda.Event() for _ in range(RING)]
+        self._next = 0
+
+    def put(self, frame: torch.Tensor) -> int:
+        """Copy ``frame`` into the next slot's pinned memory and enqueue its
+        copy into the slot's device buffer on the upload stream (the current
+        stream); returns the slot."""
+        s, self._next = self._next, (self._next + 1) % RING
+        self.uploaded[s].synchronize()  # the slot's last copy has read it
+        self.pinned[s].copy_(frame)
+        self.stream.wait_event(self.freed[s])
+        self.frames[s].copy_(self.pinned[s], non_blocking=True)
+        self.uploaded[s].record(self.stream)
+        return s
 
 
 class ClipProcessor:
@@ -102,6 +162,7 @@ class ClipProcessor:
         # the readbacks' stream (module docstring); none on the CPU
         self._copies = (torch.cuda.Stream(self.device) if self.device.type == "cuda"
                         else None)
+        self._ring: Optional[_UploadRing] = None  # made by the first chunk that stages
 
     def process_chunk(self, frames_u8) -> Tuple[np.ndarray, np.ndarray]:
         """frames_u8: [T, C, H, W] u8 (numpy or a tensor on any device).
@@ -110,8 +171,11 @@ class ClipProcessor:
         cursor, copies = self.cursor, self._copies
         with span("export.chunk", cursor):
             frames = torch.as_tensor(frames_u8)
-            with span("export.h2d", cursor, copy=self.device, nbytes=frames.nbytes):
-                frames = frames.to(self.device)
+            if stages(self.device, self.time_parallel, frames):
+                on_card = self._staged(cursor, frames)
+            else:
+                with span("export.h2d", cursor, copy=self.device, nbytes=frames.nbytes):
+                    frames = on_card = frames.to(self.device)
             if self.time_parallel:
                 with span("export.step", cursor):
                     self.state, panes = self._chunk_raw(self.state, frames)
@@ -119,7 +183,7 @@ class ClipProcessor:
                 self._d2h(cursor, panes, hosts)
             else:
                 held = []  # every pane stays referenced until its copy is done
-                for i, frame in enumerate(frames):
+                for i, frame in enumerate(on_card):
                     with span("export.step", cursor + i):
                         if self._graphed(frame):
                             with span("export.replay", cursor + i):
@@ -137,6 +201,33 @@ class ClipProcessor:
                 result = hosts[0].numpy(), hosts[1].numpy()
             self.cursor += frames.shape[0]
         return result
+
+    def _staged(self, cursor, frames) -> Iterator[torch.Tensor]:
+        """The frames of a host chunk on the card, one at a time, through the
+        upload ring (module docstring): frame i is yielded once the current
+        stream waits for its upload and frame i+1's is enqueued; its slot is
+        marked free on the copy stream when the caller asks for frame i+1,
+        after frame i's panes are enqueued there."""
+        if self._ring is None or self._ring.key != (frames.shape[1:], frames.dtype):
+            self._ring = _UploadRing(frames[0], self.device)
+        ring, n = self._ring, len(frames)
+        compute = torch.cuda.current_stream(self.device)
+
+        def stage(i):
+            with torch.cuda.stream(ring.stream), span("export.stage", cursor + i,
+                                                      copy=self.device, nbytes=frames[i].nbytes):
+                return ring.put(frames[i])
+
+        with torch.cuda.stream(ring.stream), span("export.h2d", cursor, copy=self.device,
+                                                  nbytes=frames.nbytes):
+            ahead = stage(0)
+        for i in range(n):
+            slot = ahead
+            if i + 1 < n:
+                ahead = stage(i + 1)
+            compute.wait_event(ring.uploaded[slot])
+            yield ring.frames[slot]
+            ring.freed[slot].record(self._copies)
 
     def _graphed(self, frame) -> bool:
         """Whether ``frame`` replays the step's CUDA graph (``replays``),

@@ -10,10 +10,12 @@ Bars: >= 40 dB PSNR per frame (the reference suite's oracle bar) and at most
 1 u8 LSB anywhere; bit-equal where the port runs the same step twice.
 """
 
+import contextlib
 import dataclasses
 import functools
 import inspect
 import math
+import types
 
 import numpy as np
 import pytest
@@ -33,7 +35,13 @@ from live_video_magnification_tpu_torch.convert import (
     riesz_state_from_jax,
     state_to_numpy,
 )
-from live_video_magnification_tpu_torch.export.batch import ClipProcessor, export_frames, replays
+from live_video_magnification_tpu_torch.export import batch
+from live_video_magnification_tpu_torch.export.batch import (
+    ClipProcessor,
+    export_frames,
+    replays,
+    stages,
+)
 from live_video_magnification_tpu_torch.models import params as tparams
 from live_video_magnification_tpu_torch.models import riesz as triesz
 from live_video_magnification_tpu_torch.models.chain import MagnificationChain as TChain
@@ -285,6 +293,116 @@ def test_the_clip_export_replays_its_step_graph_on_steady_phase_and_laplace_fram
         assert proc._graph is None
         per_frame = np.stack([tc.process(f, cfg)[0].numpy() for f in clip])
         np.testing.assert_array_equal(processed.transpose(0, 2, 3, 1), per_frame)
+
+
+@pytest.mark.parametrize("where", ["numpy", "cpu", "cuda"])
+@pytest.mark.parametrize("time_parallel", [False, True], ids=["sequential", "time_parallel"])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+def test_the_clip_export_stages_a_host_chunk_on_the_sequential_path_on_a_card_only(
+        device, time_parallel, where):
+    """``export/batch.py::stages``: a chunk goes through the upload ring only
+    on a CUDA device, on the sequential path, and from the host (a numpy
+    array as ``process_chunk`` takes it in, or a CPU tensor). A chunk already
+    on the card (stood in by its device: the rule reads only where the chunk
+    lives), the time-parallel path and the CPU keep the whole-chunk copy."""
+    chunk = np.zeros((2, 3, 4, 5), np.uint8)
+    frames = {"numpy": lambda: torch.as_tensor(chunk), "cpu": lambda: torch.zeros(2, 3, 4, 5),
+              "cuda": lambda: types.SimpleNamespace(device=torch.device("cuda", 0))}[where]()
+    assert stages(torch.device(device), time_parallel, frames) is (
+        device == "cuda" and not time_parallel and where != "cuda")
+
+
+class _Logged:
+    """A CUDA stream or event stood in on the CPU: it logs what the host asks
+    of it."""
+
+    def __init__(self, log, name):
+        self.log, self.name = log, name
+
+    def wait_event(self, event):
+        self.log.append(("wait", self.name, event.name))
+
+    def record(self, stream=None):
+        self.log.append(("record", self.name))
+
+    def synchronize(self):
+        self.log.append(("sync", self.name))
+
+
+_UPLOAD_RING = batch._UploadRing  # the test below stands its own in
+
+
+def _logged_ring(log, frame, device):
+    """The processor's ``_UploadRing`` with CPU tensors for its pinned slots
+    and device buffers and ``_Logged`` stand-ins for its stream and events:
+    its own ``put`` runs."""
+    ring = object.__new__(_UPLOAD_RING)
+    ring.key, ring._next = (frame.shape, frame.dtype), 0
+    ring.stream = _Logged(log, "upload")
+    ring.pinned = [torch.empty_like(frame) for _ in range(batch.RING)]
+    ring.frames = [torch.empty_like(frame) for _ in range(batch.RING)]
+    ring.uploaded = [_Logged(log, f"uploaded{s}") for s in range(batch.RING)]
+    ring.freed = [_Logged(log, f"freed{s}") for s in range(batch.RING)]
+    return ring
+
+
+@pytest.mark.parametrize("mode", ["phase", "laplace"])
+def test_a_staged_chunk_is_uploaded_one_frame_ahead_of_its_steps(mode, monkeypatch):
+    """``ClipProcessor._staged`` on the CPU, with the card's streams and
+    events stood in by a log (``_logged_ring``): chunks of 1, ``RING``,
+    ``RING`` + 1 and 11 distinct frames through the ring's slots give the
+    unstaged processor's panes bit for bit, and the host's calls come in the
+    ring's order: frame 0's upload before the loop; for each frame i, frame
+    i+1's upload (the host waits for the slot's last upload before it
+    rewrites the pinned slot, the upload stream waits for the event that
+    freed the slot's device buffer, then the copy and its event), then the
+    current stream's wait for frame i's upload, frame i's panes copied out,
+    and only then frame i's slot marked free; the slots turn over across
+    chunks. One ring a processor."""
+    ui = tparams.defaults_for(tparams.MagnificationMode(mode))
+    ui.levels = 3
+    cfg = tparams.ProcessorConfig(magnification=tparams.to_params(ui))
+    lengths = [1, batch.RING, batch.RING + 1, 11]
+    tchw = np.ascontiguousarray(moving_clip(sum(lengths), H, W, seed=21).transpose(0, 3, 1, 2))
+    cuts = np.cumsum([0] + lengths)
+    chunks = [tchw[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    plain = ClipProcessor(cfg, H, W, 3, device="cpu")
+    want = [plain.process_chunk(c) for c in chunks]
+
+    log, rings = [], []
+
+    def make_ring(frame, device):
+        rings.append(_logged_ring(log, frame, device))
+        return rings[-1]
+
+    monkeypatch.setattr(batch, "stages", lambda *args: True)
+    monkeypatch.setattr(batch, "_UploadRing", make_ring)
+    monkeypatch.setattr(torch.cuda, "stream", lambda stream: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Logged(log, "compute"))
+    proc = ClipProcessor(cfg, H, W, 3, device="cpu")
+    d2h = proc._d2h
+    monkeypatch.setattr(proc, "_d2h", lambda index, panes, hosts: (log.append(("d2h", index)),
+                                                                  d2h(index, panes, hosts)))
+    slot = 0
+    for chunk, cursor, (processed, original) in zip(chunks, cuts, want):
+        del log[:]
+        got = proc.process_chunk(chunk)
+        np.testing.assert_array_equal(got[0], processed)
+        np.testing.assert_array_equal(got[1], original)
+        slots = [(slot + i) % batch.RING for i in range(len(chunk))]
+
+        def put(s):
+            return [("sync", f"uploaded{s}"), ("wait", "upload", f"freed{s}"),
+                    ("record", f"uploaded{s}")]
+
+        expected = put(slots[0])
+        for i, s in enumerate(slots):
+            expected += put(slots[i + 1]) if i + 1 < len(slots) else []
+            expected += [("wait", "compute", f"uploaded{s}"), ("d2h", cursor + i),
+                         ("record", f"freed{s}")]
+        assert log == expected
+        slot = (slot + len(chunk)) % batch.RING
+    assert len(rings) == 1
 
 
 class _Issued(TorchDispatchMode):

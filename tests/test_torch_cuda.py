@@ -6,7 +6,8 @@ the card against the CPU, the motion and colour modes (step, chain and
 ClipProcessor) on the card against the CPU, the time-parallel clip path
 of all three modes against the sequential one and the CPU, ClipProcessor's
 pinned readback on its copy stream against a plain ``.cpu()``, its step
-replayed as a CUDA graph against the eager step, and the live
+replayed as a CUDA graph against the eager step, its upload of a host chunk
+through its pinned ring against a chunk already on the card, and the live
 engine (``PlaybackController``'s stencil launches) and the ``Exporter`` on the
 card.
 
@@ -1154,6 +1155,90 @@ def test_a_step_that_cannot_be_captured_runs_eagerly(cuda, monkeypatch):
         for a, b in zip(g, r):
             np.testing.assert_array_equal(a, b)
     assert not [s for s in profiling.spans(t0, time.monotonic()) if s.name == "export.replay"]
+
+
+@pytest.mark.parametrize("mode,h,w,levels", [("phase", 540, 960, 4), ("laplace", 720, 1280, 5)],
+                         ids=["phase", "laplace"])
+def test_a_staged_host_chunk_equals_the_chunk_on_the_card_bit_for_bit(cuda, mode, h, w, levels,
+                                                                     tmp_path):
+    """ClipProcessor uploads a host chunk one frame ahead of its steps
+    through its upload ring (``export/batch.py::stages``): chunks of 1,
+    ``RING``, ``RING`` + 1 and 11 distinct frames handed as numpy arrays give
+    bit for bit the panes of the same chunks handed as CUDA tensors (no
+    copy), the first frame eager, the second capturing the step graph, the
+    rest replaying it; the last chunk as a pinned CPU tensor too; a checkpoint after the second chunk resumed by a
+    fresh processor from numpy chunks. One ring a processor, of ``RING``
+    slots. The recorder sees one ``export.h2d`` a chunk with the chunk's
+    bytes, holding frame 0's ``export.stage``, and one ``export.stage`` a
+    frame (id: its index in the clip; the frame's bytes), frame i+1's opened
+    before frame i's ``export.step``, all with their events read. The
+    time-parallel path stages nothing."""
+    import time
+
+    from live_video_magnification_tpu_torch.engine import profiling
+    from live_video_magnification_tpu_torch.export import batch
+    from live_video_magnification_tpu_torch.models.chain import StepGraph
+    from live_video_magnification_tpu_torch.utils.synthetic import moving_clip
+
+    cfg = _mode_cfg(mode, levels, 30.0)
+    lengths = [1, batch.RING, batch.RING + 1, 11]
+    tchw = np.ascontiguousarray(moving_clip(sum(lengths), h, w, seed=15).transpose(0, 3, 1, 2))
+    cuts = [int(c) for c in np.cumsum([0] + lengths)]
+    chunks = [tchw[a:b] for a, b in zip(cuts[:-1], cuts[1:])]
+    on_card = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+    want = [on_card.process_chunk(torch.from_numpy(c).to(cuda)) for c in chunks]
+    assert on_card._ring is None
+
+    staged = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+    t0 = time.monotonic()
+    profiling.enable()
+    try:
+        got = [staged.process_chunk(c) for c in chunks[:2]]
+        ring = staged._ring
+        staged.save_checkpoint(str(tmp_path / "ck"))
+        got += [staged.process_chunk(chunks[2]),
+                staged.process_chunk(torch.from_numpy(chunks[3]).pin_memory())]
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize(cuda)
+    held = profiling.spans(t0, time.monotonic())
+    assert isinstance(staged._graph, StepGraph) and staged._ring is ring
+    assert len(ring.pinned) == len(ring.frames) == batch.RING <= 3
+    for g, r in zip(got, want):
+        for a, b in zip(g, r):
+            np.testing.assert_array_equal(a, b)
+
+    h2d = [s for s in held if s.name == "export.h2d"]
+    assert [(s.id, s.nbytes) for s in h2d] == [(c, n * 3 * h * w) for c, n in zip(cuts, lengths)]
+    stage = [s for s in held if s.name == "export.stage"]
+    assert [s.id for s in stage] == list(range(sum(lengths)))
+    assert all(s.nbytes == 3 * h * w for s in stage)
+    assert all(s.device_ms is not None for s in h2d + stage)
+    steps = {s.id: s for s in held if s.name == "export.step"}
+    for s in stage:
+        if s.id in cuts:
+            assert s.parent.name == "export.h2d" and s.parent.id == s.id
+        else:
+            assert s.parent.name == "export.chunk" and s.start_ns < steps[s.id - 1].start_ns
+    assert [s.id for s in held if s.name == "export.replay"] == list(range(1, sum(lengths)))
+
+    resumed = batch.ClipProcessor(cfg, h, w, 3, device=cuda)
+    assert resumed.load_checkpoint(str(tmp_path / "ck")) == cuts[2]
+    for chunk, ref in zip(chunks[2:], want[2:]):
+        for a, b in zip(resumed.process_chunk(chunk), ref):
+            np.testing.assert_array_equal(a, b)
+
+    whole = batch.ClipProcessor(cfg, h, w, 3, time_parallel=True, device=cuda)
+    t0 = time.monotonic()
+    profiling.enable()
+    try:
+        whole.process_chunk(chunks[3])
+    finally:
+        profiling.disable()
+    torch.cuda.synchronize(cuda)
+    held = profiling.spans(t0, time.monotonic())
+    assert whole._ring is None and not [s for s in held if s.name == "export.stage"]
+    assert [s.nbytes for s in held if s.name == "export.h2d"] == [lengths[3] * 3 * h * w]
 
 
 def test_the_colour_spans_read_their_device_time_on_the_card(cuda):
